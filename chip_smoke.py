@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare DIR ...]
 
 Phases (each one fatal on failure):
 
 1. device: name, count and the card's power limit (nvidia-smi);
 2. build: both CUDA kernels from ``zenslam_tpu_torch/csrc`` (one nvcc per
-   source, in parallel), printing ptxas' register / shared-memory / spill lines;
+   source, all in parallel, with those of every ``--compare`` directory),
+   printing ptxas' register / shared-memory / spill lines; a kernel of this
+   tree with a stack frame or spills fails the phase;
 3. lk: the LK kernel against its plain PyTorch version on a rendered
    1024x1024 stereo pair, 512 detected points, the per-frame step's exact
-   arguments (with and without init_pts); timed with CUDA events;
+   arguments (with and without init_pts); timed two ways (see below);
 4. orb: the ORB kernel against its plain version, full and with a ~10%
    ``needs`` mask; timed likewise;
 5. slice: the default SlamConfig on a 1024x1024 'arc' sequence rendered on the
@@ -20,16 +22,36 @@ Phases (each one fatal on failure):
 6. a ``kernels`` JSON line, the nvidia-smi line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
+Each kernel is timed two ways, each as the median and min-max of
+``REPEATS`` repeats per turn: ``ms`` is the time per wrapper call (CUDA
+events around back-to-back calls: the host's shape checks and ctypes call
+plus the kernel, what the main path pays), ``device_ms`` the device time per
+launch (``DEVICE_CALLS`` calls captured in one CUDA graph and replayed
+between CUDA events, so the host's work is not timed). With ``--compare
+DIR`` (repeatable) the kernels built from ``DIR/lk_fb.cu`` and/or
+``DIR/orb.cu`` (another revision's or a variant's, same C interface) are
+checked against the plain versions and timed the same way, in turns: every
+DIR, this tree twice, every DIR in reverse order.
+
+``bound_ms`` is the larger of the bytes the kernel must move over HBM's rate
+(the 32-byte sectors of the texels this run's data reads, each once, plus
+the small inputs and outputs) and its f32 operations over the f32 peak.
+
 It exits non-zero without a result when no CUDA device is present or when
 the ``zenslam_tpu_torch`` package is not next to it. It imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -39,6 +61,8 @@ SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+REPEATS = 5          # timed repeats per turn
+DEVICE_CALLS = 50    # wrapper calls captured in one CUDA graph
 
 
 class PhaseError(RuntimeError):
@@ -50,21 +74,133 @@ def require(cond, msg):
         raise PhaseError(msg)
 
 
-def time_cuda(fn, reps: int, warmup: int = 3) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
+def _events_ms(run, count: int) -> float:
+    """ms per item of ``run()``, which does ``count`` items, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def time_calls(fn, reps: int, repeats: int = REPEATS, warmup: int = 3) -> list:
+    """ms per call of ``fn`` (host + device), one value per repeat of
+    ``reps`` back-to-back calls, after warm-up."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    return [_events_ms(run, reps) for _ in range(repeats)]
+
+
+def time_device(fn, calls: int = DEVICE_CALLS, repeats: int = REPEATS) -> list:
+    """Device ms per launch of ``fn``, one value per repeat: ``calls``
+    calls captured into one CUDA graph, replayed between CUDA events."""
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return [_events_ms(graph.replay, calls) for _ in range(repeats)]
+
+
+def summary(ms: list) -> dict:
+    """Median and [min, max] of repeated timings."""
+    return {"median": float(np.median(ms)), "spread": [float(min(ms)), float(max(ms))]}
+
+
+@contextlib.contextmanager
+def kernels_from(csrc_dir):
+    """Inside the block the wrappers launch the kernels built from
+    ``csrc_dir`` (this tree's when None). A timing aid of this script: the
+    package itself always loads ``csrc/``."""
+    from zenslam_tpu_torch.ops import cuda_build
+
+    if csrc_dir is None:
+        yield
+        return
+    load = cuda_build.load
+    cuda_build.load = lambda name: load(name, csrc_dir)
+    try:
+        yield
+    finally:
+        cuda_build.load = load
+
+
+def compared(kernel: str, compare: list) -> list:
+    """The --compare directories that hold ``kernel``'s source."""
+    return [d for d in compare if (Path(d) / f"{kernel}.cu").is_file()]
+
+
+def time_turns(fn, reps: int, dirs: list) -> dict:
+    """Per-call and device times of ``fn`` with this tree's kernels ("new")
+    and with those of each directory in ``dirs``, in turns: the directories,
+    new, new, the directories in reverse order."""
+    order = [*dirs, None, None, *dirs[::-1]]
+    raw = {d or "new": {"call": [], "device": []} for d in order}
+    for d in order:
+        with kernels_from(d):
+            raw[d or "new"]["device"] += time_device(fn)
+            raw[d or "new"]["call"] += time_calls(fn, reps)
+    return {who: {k: summary(v) for k, v in t.items()} for who, t in raw.items()}
+
+
+def sector_bytes(mask, elem: int) -> int:
+    """Bytes of the 32-byte sectors that hold the True texels of a (h, w)
+    row-major image of ``elem``-byte texels."""
+    import torch
+
+    per = 32 // elem
+    h, w = mask.shape
+    pad = torch.nn.functional.pad(mask, (0, -w % per))
+    return int(pad.reshape(h, -1, per).any(-1).sum()) * 32
+
+
+def box_mask(h: int, w: int, lx, ly, side: int, hx=None, hy=None):
+    """(h, w) bool mask of the union of boxes [lx, lx+side) x [ly, ly+side)
+    (int tensors, one box per row), each cut at hx / hy (inclusive, default
+    the box's end) and at the image."""
+    import torch
+
+    d = torch.arange(side, device=lx.device)
+    xs = lx[:, None] + d
+    ys = ly[:, None] + d
+    okx = (xs < w) if hx is None else (xs <= hx[:, None]) & (xs < w)
+    oky = (ys < h) if hy is None else (ys <= hy[:, None]) & (ys < h)
+    keep = oky[:, :, None] & okx[:, None, :] & (xs >= 0)[:, None, :] & (ys >= 0)[:, :, None]
+    idx = (ys.clamp(0, h - 1)[:, :, None] * w + xs.clamp(0, w - 1)[:, None, :])[keep]
+    mask = torch.zeros(h * w, dtype=torch.bool, device=lx.device)
+    mask[idx] = True
+    return mask.reshape(h, w)
+
+
+def report_times(tag: str, times: dict) -> None:
+    for who, t in times.items():
+        c, d = t["call"], t["device"]
+        print(f"[{tag}] {who} kernel: device {d['median']:.5f} ms/launch "
+              f"[{d['spread'][0]:.5f}, {d['spread'][1]:.5f}], per call "
+              f"{c['median']:.5f} ms [{c['spread'][0]:.5f}, {c['spread'][1]:.5f}]")
+
+
+def kernel_entry(times: dict, **fields) -> dict:
+    new = times["new"]
+    return dict(fields, ms=new["call"]["median"], ms_spread=new["call"]["spread"],
+                device_ms=new["device"]["median"], device_ms_spread=new["device"]["spread"])
 
 
 def phase_device():
@@ -82,16 +218,28 @@ def phase_device():
     return name, count, smi_line
 
 
-def phase_build():
+def phase_build(compare: list):
     from zenslam_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["lk_fb", "orb"])
-    for name, text in logs.items():
+    dirs = [cuda_build.CSRC_DIR, *compare]
+    names = [[k for k in ("lk_fb", "orb") if (Path(d) / f"{k}.cu").is_file()] for d in dirs]
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        all_logs = list(pool.map(cuda_build.build, names, dirs))
+    for name, text in all_logs[0].items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"[build] {name}: {line.strip()}")
-    print(f"[build] done in {time.perf_counter() - t0:.1f} s")
+        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", text)
+        require(frames and all(f == ("0", "0", "0") for f in frames),
+                f"build: ptxas reports a stack frame or spills for {name}")
+    for d, logs in zip(compare, all_logs[1:]):
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {d} {name}: {line.strip()}")
+    print(f"[build] {sum(map(len, names))} sources in {time.perf_counter() - t0:.1f} s")
 
 
 def render_inputs(dev):
@@ -115,7 +263,54 @@ def render_inputs(dev):
     return seq, xy, valid
 
 
-def phase_lk(seq, xy, valid, dev):
+def lk_bytes(prev, nxt, xy, valid, tracked, ok, radius: int, bwd_levels: int) -> int:
+    """Bytes of the pyramid sectors the LK kernel reads on these inputs. Per
+    level: the template footprint of every valid point (exact), and the
+    Newton window at its final flow scaled to the level (the steps before it
+    move the window by a few texels); the backward pass likewise, around
+    the forward result, for the rows that end ok."""
+    import torch
+
+    G, win = 2 * radius + 3, 2 * radius + 1
+
+    def template(h, w, x, y):  # texels tap_lo(off) .. tap_hi(off + G - 1)
+        out = []
+        for c, n in ((x, w), (y, h)):
+            off = (c - radius) - 1.0
+            lo = torch.floor(off.clamp(0, n - 1)).long()
+            hi = (torch.floor((off + (G - 1)).clamp(0, n - 1)).long() + 1).clamp(max=n - 1)
+            out += [lo, hi]
+        return out
+
+    def window(h, w, x, y):  # texels floor(o) .. floor(o) + win + 2, clamped
+        out = []
+        for c, n in ((x, w), (y, h)):
+            f = torch.floor((c - radius) - 1.0).long()
+            lo = f.clamp(0, n - 1)
+            hi = ((f + win + 1).clamp(0, n - 1) + 1).clamp(max=n - 1)
+            out += [lo, hi]
+        return out
+
+    src, dst = xy[valid], tracked[valid]
+    back_src, back_dst = tracked[ok], xy[ok]
+    total = 0
+    for lvl, (a, b) in enumerate(zip(prev, nxt)):
+        h, w = a.shape
+        sc = 1.0 / (1 << lvl)
+        boxes = {0: [template(h, w, *(src * sc).unbind(-1))],
+                 1: [window(h, w, *(dst * sc).unbind(-1))]}
+        if lvl < bwd_levels:
+            boxes[1].append(template(h, w, *(back_src * sc).unbind(-1)))
+            boxes[0].append(window(h, w, *(back_dst * sc).unbind(-1)))
+        for img, bs in boxes.items():
+            mask = torch.zeros((h, w), dtype=torch.bool, device=xy.device)
+            for lx, hx, ly, hy in bs:
+                mask |= box_mask(h, w, lx, ly, G + 1, hx, hy)
+            total += sector_bytes(mask, a.element_size())
+    return total
+
+
+def phase_lk(seq, xy, valid, dev, compare: list):
     import torch
 
     from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
@@ -149,26 +344,63 @@ def phase_lk(seq, xy, valid, dev):
         require(bool((tk[inv] == xy[inv]).all()) and not bool(ok_k[inv].any()),
                 f"lk {name}: invalid rows not passed through")
 
+    dirs = compared("lk_fb", compare)
+    tp, ok_p, _ = lk_ragged_plain(l0, l1, xy, valid, init_pts=init, **args)
+    for d in dirs:
+        with kernels_from(d):
+            tk, ok_k, _ = lk_ragged(l0, l1, xy, valid, init_pts=init, **args)
+        both = ok_k & ok_p
+        print(f"[lk] {d} kernel vs plain (temporal+init): flags agree "
+              f"{float((ok_k == ok_p)[valid].float().mean()):.4f}, max |dxy| on ok-in-both "
+              f"{float((tk - tp).abs()[both].max()):.2e} px")
+
     work = {}
     lk_ragged_plain(l0, l1, xy, valid, init_pts=init, work=work, **args)
-    ms = time_cuda(lambda: lk_ragged(l0, l1, xy, valid, init_pts=init, **args), 100)
-    plain_ms = time_cuda(lambda: lk_ragged_plain(l0, l1, xy, valid, init_pts=init, **args), 10)
+    times = time_turns(lambda: lk_ragged(l0, l1, xy, valid, init_pts=init, **args), 100, dirs)
+    plain_ms = float(np.median(time_calls(
+        lambda: lk_ragged_plain(l0, l1, xy, valid, init_pts=init, **args), 10, repeats=3)))
     n = xy.shape[0]
-    nbytes = sum(p.numel() * p.element_size() for p in (*l0, *l1)) + n * (8 + 8 + 1) + n * (8 + 1 + 4)
+    nbytes = lk_bytes(l0, l1, xy, valid, tp, ok_p, args["radius"], args["bwd_levels"]) \
+        + n * (8 + 8 + 1) + n * (8 + 1 + 4)
     # f32 ops per bilinear sample (clamp, floor, weights, 6 mul + 3 add) ~ 20;
     # per Newton cell +3 (residual, two FMAs); per template cell +8 (gradients, sums)
     ops = 20 * (work["grid_samples"] + work["window_samples"]) \
         + 3 * work["window_samples"] + 8 * work["grid_samples"]
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    print(f"[lk] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bytes {nbytes}, "
-          f"samples {work}, bound {max(t_bytes, t_ops):.5f} ms")
-    return dict(name="lk_fb", route="cuda", source="zenslam_tpu_torch/csrc/lk_fb.cu",
-                replaces="zenslam_tpu/ops/lk_pallas.py:95", max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    report_times("lk", times)
+    print(f"[lk] plain {plain_ms:.3f} ms; bytes {nbytes} ({t_bytes:.5f} ms), samples {work} "
+          f"({t_ops:.5f} ms), bound {max(t_bytes, t_ops):.5f} ms")
+    return kernel_entry(times, name="lk_fb", route="cuda",
+                        source="zenslam_tpu_torch/csrc/lk_fb.cu",
+                        replaces="zenslam_tpu/ops/lk_pallas.py:95", max_abs_err=max_err,
+                        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        library_ms=None)
 
 
-def phase_orb(seq, xy, valid, dev):
+def orb_bytes(sm, xy, valid, c, s) -> int:
+    """Bytes of the image sectors the ORB kernel reads on these inputs: the
+    31x31 moment window of every row and, for valid rows, the nearest pixel
+    of each pattern endpoint rotated by (c, s)."""
+    import torch
+
+    from zenslam_tpu_torch.ops.orb_cuda import _pattern
+
+    H, W = sm.shape
+    r = 15
+    xi = torch.round(xy[:, 0]).long()
+    yi = torch.round(xy[:, 1]).long()
+    mask = box_mask(H, W, xi - r, yi - r, 2 * r + 1).reshape(-1)
+    pat = _pattern(xy.device)
+    xc, yc, c, s = xy[valid, 0:1], xy[valid, 1:2], c[valid, None], s[valid, None]
+    for px, py in ((pat[:, 0], pat[:, 1]), (pat[:, 2], pat[:, 3])):
+        kx = torch.round((xc + px * c) - py * s).long().clamp(0, W - 1)
+        ky = torch.round((yc + px * s) + py * c).long().clamp(0, H - 1)
+        mask[(ky * W + kx).reshape(-1)] = True
+    return sector_bytes(mask.reshape(H, W), sm.element_size())
+
+
+def phase_orb(seq, xy, valid, dev, compare: list):
     import torch
 
     from zenslam_tpu_torch.ops.image import gaussian_blur
@@ -196,19 +428,31 @@ def phase_orb(seq, xy, valid, dev):
     require(bool((wn[needs] == wk[needs]).all()), "orb: needs rows differ from the full pass")
     print(f"[orb] needs mask: {int(needs.sum())} rows computed, bit-identical to the full pass")
 
-    ms = time_cuda(lambda: orb_steered_brief(sm, xy, valid), 200)
-    plain_ms = time_cuda(lambda: orb_steered_brief_plain(sm, xy, valid), 20)
+    dirs = compared("orb", compare)
+    for d in dirs:
+        with kernels_from(d):
+            wd, cd, sd = orb_steered_brief(sm, xy, valid)
+        print(f"[orb] {d} kernel vs plain: rows identical "
+              f"{float((wd == wp).all(-1)[valid].float().mean()):.4f}, max |dcos| "
+              f"{float((cd - cp).abs().max()):.2e}, max |dsin| {float((sd - sp).abs().max()):.2e}")
+
+    times = time_turns(lambda: orb_steered_brief(sm, xy, valid), 200, dirs)
+    plain_ms = float(np.median(time_calls(
+        lambda: orb_steered_brief_plain(sm, xy, valid), 20, repeats=3)))
     n = xy.shape[0]
-    nbytes = sm.numel() * 2 + n * (8 + 1) + 256 * 16 + n * (32 + 8)
+    nbytes = orb_bytes(sm, xy, valid, cp, sp) + n * (8 + 1) + 256 * 16 + n * (32 + 8)
     # per keypoint: 961 moment taps x 4 ops, 512 rotated samples x 8 ops, 256 compares
     ops = n * (961 * 4 + 512 * 8 + 256)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    print(f"[orb] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound {max(t_bytes, t_ops):.5f} ms")
-    return dict(name="orb", route="cuda", source="zenslam_tpu_torch/csrc/orb.cu",
-                replaces="zenslam_tpu/ops/orb_pallas.py:56",
-                max_abs_err=float(dth.max()), ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    report_times("orb", times)
+    print(f"[orb] plain {plain_ms:.3f} ms; bytes {nbytes} ({t_bytes:.5f} ms), ops {ops} "
+          f"({t_ops:.5f} ms), bound {max(t_bytes, t_ops):.5f} ms")
+    return kernel_entry(times, name="orb", route="cuda", source="zenslam_tpu_torch/csrc/orb.cu",
+                        replaces="zenslam_tpu/ops/orb_pallas.py:56",
+                        max_abs_err=float(dth.max()), plain_ms=plain_ms,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
+                        library_ms=None)
 
 
 def phase_slice(seq, dev):
@@ -255,6 +499,12 @@ def phase_slice(seq, dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", action="append", default=[], metavar="DIR",
+                    help="directory with another revision's (or a variant's) lk_fb.cu "
+                         "and/or orb.cu to check and time beside this tree's kernels "
+                         "(repeatable)")
+    compare = ap.parse_args().compare
     try:
         import torch
         import zenslam_tpu_torch  # noqa: F401  (the package beside this script)
@@ -263,11 +513,11 @@ def main() -> int:
         return 2
     try:
         name, count, smi_line = phase_device()
-        phase_build()
+        phase_build(compare)
         dev = torch.device("cuda")
         seq, xy, valid = render_inputs(dev)
-        lk = phase_lk(seq, xy, valid, dev)
-        orb = phase_orb(seq, xy, valid, dev)
+        lk = phase_lk(seq, xy, valid, dev, compare)
+        orb = phase_orb(seq, xy, valid, dev, compare)
         launches = phase_slice(seq, dev)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -275,7 +525,8 @@ def main() -> int:
     lk["launches"] = launches["lk_fb"]
     orb["launches"] = launches["orb"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms_spread", "device_ms", "device_ms_spread", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (lk, orb)]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -133,3 +133,17 @@ def test_wrappers_take_plain_version_only_on_cpu():
     with pytest.raises(TypeError):
         orb_cuda.orb_steered_brief(torch.zeros(64, 64), torch.zeros(4, 2),
                                    torch.ones(4, dtype=torch.bool))
+
+
+def test_build_sources_switch_the_library(tmp_path):
+    """A source directory other than ``csrc/`` builds its own library, named
+    after the source's content; the default stays ``csrc/``'s."""
+    from zenslam_tpu_torch.ops import cuda_build
+
+    here = cuda_build.library_path("lk_fb")
+    (tmp_path / "lk_fb.cu").write_text("// another revision\n")
+    other = cuda_build.library_path("lk_fb", tmp_path)
+    assert other != here and other.parent == here.parent
+    assert cuda_build.library_path("lk_fb", cuda_build.CSRC_DIR) == here
+    (tmp_path / "lk_fb.cu").write_text((cuda_build.CSRC_DIR / "lk_fb.cu").read_text())
+    assert cuda_build.library_path("lk_fb", tmp_path) == here

@@ -7,6 +7,8 @@ Libraries go to ``zenslam_tpu_torch/_build/lib<name>-<hash>.so``; the hash
 covers the source and the flags, so a changed source is rebuilt and a stale
 library is never loaded. Nothing builds at import: the first launch builds
 what it needs, and ``build(names)`` runs one ``nvcc`` per source in parallel.
+Each function takes the source directory (``CSRC_DIR`` unless the caller
+names another, as ``chip_smoke.py --compare`` does to time other revisions).
 """
 
 from __future__ import annotations
@@ -43,13 +45,13 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def library_path(name: str, csrc_dir=CSRC_DIR) -> Path:
+    src = (Path(csrc_dir) / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names) -> dict:
+def build(names, csrc_dir=CSRC_DIR) -> dict:
     """Compile every source in ``names`` that is not built yet, one nvcc per
     source, all started together. Returns {name: ptxas/compiler log}; raises
     RuntimeError naming each source that failed."""
@@ -57,13 +59,13 @@ def build(names) -> dict:
     procs = {}
     logs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc_dir)
         log = out.with_suffix(".log")
         if out.is_file():
             logs[name] = log.read_text() if log.is_file() else ""
             continue
         tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc_dir) / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, log)
@@ -81,14 +83,15 @@ def build(names) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        path = library_path(name)
+def load(name: str, csrc_dir=CSRC_DIR) -> ctypes.CDLL:
+    """The loaded library for ``<csrc_dir>/<name>.cu``, built first if needed."""
+    key = (name, str(csrc_dir))
+    if key not in _LIBS:
+        path = library_path(name, csrc_dir)
         if not path.is_file():
-            build([name])
-        _LIBS[name] = ctypes.CDLL(str(path))
-    return _LIBS[name]
+            build([name], csrc_dir)
+        _LIBS[key] = ctypes.CDLL(str(path))
+    return _LIBS[key]
 
 
 def check(status: int, what: str) -> None:

@@ -22,6 +22,7 @@ import torch
 from zenslam_tpu_torch.ops import cuda_build
 
 MAX_LEVELS = 8
+MAX_CUDA_RADIUS = 15  # csrc/lk_fb.cu: a thread owns one window column, <= 8 of its rows
 
 
 class _LkPyramid(ctypes.Structure):
@@ -95,7 +96,9 @@ def lk_ragged(prev_levels, next_levels, pts, valid, init_pts=None, radius: int =
     prev_levels/next_levels: tuples of (h_l, w_l) bf16 or f32 tensors, level
     0 first, at true sizes. pts/init_pts (N, 2) f32; valid (N,) bool.
     iters: int (uniform) or fine→coarse per-level tuple. bwd_levels: the
-    backward pass refines only the finest k levels (0 = all).
+    backward pass refines only the finest k levels (0 = all). The kernel
+    takes radius <= MAX_CUDA_RADIUS (the Pallas kernel's 32-row tile holds
+    the 2r+3 template rows, so r <= 14 there).
     Returns (tracked (N, 2) f32, ok (N,) bool, err (N,) f32)."""
     levels, init_pts, iters, bwd_levels = _normalise(
         prev_levels, next_levels, pts, valid, init_pts, iters, bwd_levels)
@@ -108,6 +111,8 @@ def lk_ragged(prev_levels, next_levels, pts, valid, init_pts=None, radius: int =
                                fb_threshold, do_backward, bwd_levels, compute_err)
     if dev.type != "cuda":
         raise ValueError(f"lk_ragged runs on cuda or cpu, not {dev.type}")
+    if not 0 <= radius <= MAX_CUDA_RADIUS:
+        raise ValueError(f"the LK kernel takes radius 0..{MAX_CUDA_RADIUS}, not {radius}")
     prev_levels = tuple(p.contiguous() for p in prev_levels)
     next_levels = tuple(p.contiguous() for p in next_levels)
     pts_c = pts.contiguous()
