@@ -15,12 +15,34 @@ Phases (each one fatal on failure):
    arguments (with and without init_pts); timed two ways (see below);
 4. orb: the ORB kernel against its plain version, full and with a ~10%
    ``needs`` mask; timed likewise;
-5. slice: the default SlamConfig on a 1024x1024 'arc' sequence rendered on the
-   card (8 warm-up frames, then the measured frames with every launch counter
-   set to 0 first): exactly 2 LK and 1 ORB launches per frame, pose_ok on
-   >= 90% of frames, ATE < 0.05 m; prints ms/frame, fps, peak memory;
-6. a ``kernels`` JSON line, the nvidia-smi line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+5. slice: ``slam_step`` alone, default SlamConfig, on the first 40 frames of
+   a 1024x1024 'arc' sequence rendered on the card (8 warm-up frames, then
+   the measured frames with every launch counter set to 0 first): exactly 2
+   LK and 1 ORB launches per frame, pose_ok on >= 90% of frames, ATE <
+   0.05 m; prints ms/frame, fps, peak memory;
+6. system: the full keyframe system as ``bench.py:run_full_system_fps``
+   drives it: ``create_system`` with the default SlamConfig and
+   ``BackendConfig(telemetry_lag=3)``, ``process_frame`` over the 80-frame
+   sequence (a throwaway system first warms the back end's first uses;
+   frames 0-9 untimed, then counters at 0, frames 10-79 and
+   ``flush_pipeline`` timed up to a synchronise). Prints ms/frame, fps, the
+   median host ``backend_ms`` per keyframe and of each of its phases,
+   keyframes, BA runs, vocabulary trains, archive size, peak memory, ATE,
+   pose_ok, launches, and the host syncs (the system's waits on its
+   device->host copies by kind, and every implicit synchronise that
+   ``torch.cuda.set_sync_debug_mode`` reports, by source line). Requires 2
+   LK + 1 ORB launches per timed frame, >= 8 keyframes (the vocabulary
+   retrain at 8 runs), a BA run on every keyframe after the first, each
+   with rmse_after <= 1.05 rmse_before and no dropped observations,
+   pose_ok >= 0.9 and ATE < 0.05 m;
+7. loop: the 64-frame 320x240 orbit of ``tests/test_loop_closure.py``
+   (seed 21, pixel noise 0.01, radius 1.0, host render) through
+   ``run_system`` twice, loop closure off and on with that test's configs:
+   at least one loop closes, and the keyframe ATE with loops is below the
+   one without; 2 LK + 1 ORB launches per frame in each run;
+8. a ``kernels`` JSON line (``launches`` is the system phase's count,
+   ``launches_by_path`` every path's), the nvidia-smi line, and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Each kernel is timed two ways, each as the median and min-max of
 ``REPEATS`` repeats per turn: ``ms`` is the time per wrapper call (CUDA
@@ -50,13 +72,17 @@ import re
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
-N_FRAMES = 40
+N_FRAMES = 40        # slice phase: frames of the rendered sequence it runs
 N_WARMUP = 8
+SYSTEM_FRAMES = 80   # system phase (bench.py:run_full_system_fps)
+SYSTEM_WARMUP = 10
 SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -250,7 +276,7 @@ def render_inputs(dev):
     from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
 
     t0 = time.perf_counter()
-    seq = make_sequence(np.random.default_rng(11), n_frames=N_FRAMES, width=SIZE,
+    seq = make_sequence(np.random.default_rng(11), n_frames=SYSTEM_FRAMES, width=SIZE,
                         height=SIZE, motion="arc", speed=0.5, device_render=True,
                         device=dev)
     torch.cuda.synchronize()
@@ -258,7 +284,7 @@ def render_inputs(dev):
         seq.left[0], torch.zeros((512, 2), device=dev), torch.zeros(512, dtype=torch.bool, device=dev),
         max_keypoints=512, subpixel=True)
     require(int(valid.sum()) >= 400, f"only {int(valid.sum())} keypoints detected")
-    print(f"[render] {N_FRAMES} stereo frames {SIZE}x{SIZE} in "
+    print(f"[render] {SYSTEM_FRAMES} stereo frames {SIZE}x{SIZE} in "
           f"{time.perf_counter() - t0:.1f} s; {int(valid.sum())} keypoints")
     return seq, xy, valid
 
@@ -459,8 +485,6 @@ def phase_slice(seq, dev):
     import torch
 
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
-    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
-    from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
 
     cfg = SlamConfig()
@@ -471,21 +495,21 @@ def phase_slice(seq, dev):
         Rs.append(tel.R_cw), ts.append(tel.t_cw), ok.append(tel.pose_ok)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lk_ragged.launches = 0
-    orb_steered_brief.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for t in range(N_WARMUP, N_FRAMES):
         state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
         Rs.append(tel.R_cw), ts.append(tel.t_cw), ok.append(tel.pose_ok)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"lk_fb": lk_ragged.launches, "orb": orb_steered_brief.launches}
+    launches = read_launches()
     n = N_FRAMES - N_WARMUP
     R = torch.stack(Rs).cpu().numpy()
     tt = torch.stack(ts).cpu().numpy()
     pose_ok = torch.stack(ok).cpu().numpy()
     require(np.isfinite(R).all() and np.isfinite(tt).all(), "slice: non-finite pose")
-    ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
+    gt = camera_positions(seq.R_lw[:N_FRAMES], seq.t_lw[:N_FRAMES])
+    ate = ate_rmse(camera_positions(R, tt), gt)
     ok_share = float(pose_ok[1:].mean())
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"[slice] {n} frames: {dt / n * 1e3:.2f} ms/frame, {n / dt:.2f} fps, peak "
@@ -496,6 +520,216 @@ def phase_slice(seq, dev):
     require(ok_share >= 0.9, f"slice: pose_ok on {ok_share:.3f} < 0.9 of frames")
     require(ate < 0.05, f"slice: ATE {ate:.4f} m >= 0.05 m")
     return launches
+
+
+def reset_launches():
+    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
+    from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
+
+    lk_ragged.launches = 0
+    orb_steered_brief.launches = 0
+
+
+def read_launches() -> dict:
+    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
+    from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
+
+    return {"lk_fb": lk_ragged.launches, "orb": orb_steered_brief.launches}
+
+
+@contextlib.contextmanager
+def implicit_syncs():
+    """Inside the block, record every implicit synchronise that
+    ``torch.cuda.set_sync_debug_mode`` reports; yields the list the
+    records are appended to, in order."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_sites(records) -> Counter:
+    """The synchronise records among ``records``, counted by source line."""
+    return Counter(f"{Path(w.filename).name}:{w.lineno}" for w in records
+                   if "synchroniz" in str(w.message))
+
+
+@contextlib.contextmanager
+def backend_spans(system_module, records, spans: list):
+    """Note in ``spans`` the (start, end) of ``records`` over each keyframe
+    back-end call made inside the block."""
+    inner = system_module._keyframe_backend
+
+    def spanned(*args, **kwargs):
+        start = len(records)
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spans.append((start, len(records)))
+
+    system_module._keyframe_backend = spanned
+    try:
+        yield
+    finally:
+        system_module._keyframe_backend = inner
+
+
+def phase_system(seq, dev):
+    import torch
+
+    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.system import (
+        BackendConfig, create_system, flush_pipeline, process_frame)
+
+    cfg, bcfg = SlamConfig(), BackendConfig(telemetry_lag=3)
+    # a throwaway system over the first frames: the back end's first uses
+    # (solver handles, allocator growth) land outside the measured system
+    warm = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
+    for t in range(16):
+        process_frame(warm, seq.left[t], seq.right[t])
+    flush_pipeline(warm)
+    torch.cuda.synchronize()
+    del warm
+
+    s = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
+    tels, infos = [], []
+
+    def keep(tel, info):
+        if tel is not None:
+            tels.append(tel)
+            infos.append(info)
+
+    for t in range(SYSTEM_WARMUP):
+        keep(*process_frame(s, seq.left[t], seq.right[t]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kf0, reads0 = s.n_keyframes, Counter(s.host_reads)
+    n_timed_infos = len(infos)
+    spans = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with implicit_syncs() as records, backend_spans(system, records, spans):
+        for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
+            keep(*process_frame(s, seq.left[t], seq.right[t]))
+        for tel, info in flush_pipeline(s):
+            keep(tel, info)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    in_backend = {i for a, b in spans for i in range(a, b)}
+    back = sync_sites([r for i, r in enumerate(records) if i in in_backend])
+    front = sync_sites([r for i, r in enumerate(records) if i not in in_backend])
+    launches = read_launches()
+    n = SYSTEM_FRAMES - SYSTEM_WARMUP
+    timed = infos[n_timed_infos:]
+    n_kf = s.n_keyframes - kf0
+    backend = [i["backend_ms"] for i in timed if i["backend_ms"] > 0]
+    phases = {}
+    for i in timed:
+        for k, v in i.get("phases", {}).items():
+            phases.setdefault(k, []).append(v)
+    R = np.stack([t.R_cw for t in tels])
+    tt = np.stack([t.t_cw for t in tels])
+    pose_ok = np.array([float(t.pose_ok) for t in tels])
+    require(len(tels) == SYSTEM_FRAMES, f"system: {len(tels)} telemetry rows != {SYSTEM_FRAMES}")
+    require(np.isfinite(R).all() and np.isfinite(tt).all(), "system: non-finite pose")
+    ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
+    ok_share = float(pose_ok[1:].mean())
+    runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    reads = Counter(s.host_reads)
+    reads.subtract(reads0)
+    print(f"[system] {n} frames: {dt / n * 1e3:.2f} ms/frame, {n / dt:.2f} fps, peak "
+          f"{peak:.1f} MiB; backend_ms median {float(np.median(backend)):.2f} over "
+          f"{len(backend)} keyframes (min {min(backend):.2f}, max {max(backend):.2f})")
+    print("[system] phase medians (host ms per keyframe): " + ", ".join(
+        f"{k} {float(np.median(v)):.3f}" for k, v in phases.items()))
+    print(f"[system] keyframes {s.n_keyframes} ({n_kf} timed), BA runs {s.n_ba_runs}, vocabulary "
+          f"trains {s.n_vocab_trains}, loop closures {s.n_loop_closures}, relocs {s.n_relocs}, "
+          f"archive {len(s.archive)} rows ({s.archive.n_reloads} reloads); pose_ok "
+          f"{ok_share:.3f}, ATE {ate:.5f} m, launches {launches}")
+    print(f"[system] BA rmse before/after/dropped: "
+          + "; ".join(f"{a:.4f}/{b:.4f}/{int(c)}" for a, b, c in runs))
+    print(f"[system] host reads of device->host copies over the timed frames: {dict(reads)} "
+          f"({sum(reads.values()) / n:.3f} per frame; {n_kf} keyframes)")
+    nb, nf = sum(back.values()), sum(front.values())
+    print(f"[system] implicit synchronises in the keyframe back end: {nb} over {len(spans)} "
+          f"keyframes ({nb / max(len(spans), 1):.3f} per keyframe); by line: "
+          + ", ".join(f"{k} x{v}" for k, v in back.most_common()))
+    print(f"[system] implicit synchronises outside it (the step, telemetry): {nf} "
+          f"({nf / n:.3f} per frame); by line: "
+          + ", ".join(f"{k} x{v}" for k, v in front.most_common(16)))
+    require(launches == {"lk_fb": 2 * n, "orb": n},
+            f"system: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
+    require(s.n_keyframes >= 8, f"system: {s.n_keyframes} keyframes < 8")
+    require(s.n_vocab_trains >= 2, f"system: {s.n_vocab_trains} vocabulary trains (no retrain)")
+    require(s.n_ba_runs == s.n_keyframes - 1 == len(runs),
+            f"system: {s.n_ba_runs} BA runs for {s.n_keyframes} keyframes")
+    require(all(np.isfinite(r).all() and r[1] <= 1.05 * r[0] and r[2] == 0 for r in runs),
+            "system: a BA run raised its rmse by > 5% or dropped observations")
+    require(ok_share >= 0.9, f"system: pose_ok on {ok_share:.3f} < 0.9 of frames")
+    require(ate < 0.05, f"system: ATE {ate:.4f} m >= 0.05 m")
+    return launches
+
+
+def kf_ate(kf_db, seq) -> float:
+    """Unaligned RMSE of keyframe camera centres against groundtruth (as
+    tests/test_loop_closure.py:_kf_ate)."""
+    fi, v = kf_db.frame_idx.cpu().numpy(), kf_db.valid.cpu().numpy()
+    R, t = kf_db.R.cpu().numpy()[v], kf_db.t.cpu().numpy()[v]
+    est = np.einsum("kij,kj->ki", np.transpose(R, (0, 2, 1)), -t)
+    gt = np.stack([-seq.R_lw[f].T @ seq.t_lw[f] for f in fi[v]])
+    return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1))))
+
+
+def phase_loop(dev):
+    import torch
+
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, run_system
+
+    t0 = time.perf_counter()
+    seq = make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
+                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
+                     kf_min_translation=0.05)
+    configs = {
+        "off": BackendConfig(ba_every_kf=False, enable_loop_closure=False),
+        "on": BackendConfig(ba_every_kf=False, enable_loop_closure=True, bow_branch=32,
+                            bow_top_k=5, bow_min_score=0.20, bow_min_frame_gap=15,
+                            loop_min_inliers=12)}
+    out, launches = {}, {}
+    for name, bcfg in configs.items():
+        s = create_system(cfg, bcfg, seq.rig, (240, 320))
+        reset_launches()
+        t1 = time.perf_counter()
+        run_system(s, seq.left, seq.right)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches[name] = read_launches()
+        out[name] = s
+        print(f"[loop] loops {name}: 64 frames in {dt:.2f} s, keyframes {s.n_keyframes}, "
+              f"loop closures {s.n_loop_closures}, keyframe ATE {kf_ate(s.kf_db, seq):.5f} m, "
+              f"launches {launches[name]}")
+        require(launches[name] == {"lk_fb": 128, "orb": 64},
+                f"loop {name}: launches {launches[name]} != 2 LK + 1 ORB per frame")
+    fired = [d for d in out["on"].loop_debug if d["fired"]]
+    print(f"[loop] fired: {fired}; phase {time.perf_counter() - t0:.1f} s")
+    ate_off, ate_on = kf_ate(out["off"].kf_db, seq), kf_ate(out["on"].kf_db, seq)
+    require(out["on"].n_loop_closures >= 1, "loop: no loop closed")
+    require(ate_on < ate_off, f"loop: keyframe ATE with loops {ate_on:.5f} m >= without "
+                              f"{ate_off:.5f} m")
+    total = Counter()
+    for v in launches.values():
+        total.update(v)
+    return dict(total)
 
 
 def main() -> int:
@@ -518,15 +752,17 @@ def main() -> int:
         seq, xy, valid = render_inputs(dev)
         lk = phase_lk(seq, xy, valid, dev, compare)
         orb = phase_orb(seq, xy, valid, dev, compare)
-        launches = phase_slice(seq, dev)
+        paths = {"slice": phase_slice(seq, dev), "system": phase_system(seq, dev),
+                 "loop": phase_loop(dev)}
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    lk["launches"] = launches["lk_fb"]
-    orb["launches"] = launches["orb"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "ms_spread", "device_ms", "device_ms_spread", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    for k in (lk, orb):
+        k["launches"] = paths["system"][k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "ms_spread", "device_ms", "device_ms_spread", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (lk, orb)]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,17 +11,25 @@ with flags agreeing on >= 99% of valid rows; ORB >= 99% rows identical and
 cos/sin within 1e-5. The differences left are the order of f32 sums (block
 reductions) and nvcc's FMA contraction, not the sampling arithmetic, which
 the kernels share with the plain versions.
+
+The back end has no hand kernel; its tests hold the port on the card
+against the port on the CPU: dense BA and the pose graph within 1e-4, the
+vocabulary tree identical given the same k-means draws, and a short
+``run_system`` with ``telemetry_lag=3`` on the kernels.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from zenslam_tpu_torch.backend import ba, bow, pose_graph
+from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse, so3_exp
 from zenslam_tpu_torch.io.synthetic import make_sequence, smooth_texture
 from zenslam_tpu_torch.ops import lk_cuda, orb_cuda
 from zenslam_tpu_torch.ops.image import gaussian_blur
 from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
 from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+from zenslam_tpu_torch.pipeline import system as psystem
 
 LK_ARGS = dict(radius=10, iters=(5, 3, 3, 3), bwd_levels=1, compute_err=False,
                fb_threshold=1.0)
@@ -236,3 +244,145 @@ def test_slice_runs_on_kernels(dev):
     assert lk_cuda.lk_ragged.launches - lk0 == 12
     assert orb_cuda.orb_steered_brief.launches - orb0 == 6
     assert all(oks[1:])
+
+
+def _rot(rng, sigma):
+    return so3_exp(torch.from_numpy(rng.normal(0, sigma, 3).astype(np.float32)))
+
+
+def _ba_problem(seed=7, n_kf=6, n_lm=240):
+    """A 6-keyframe stereo window on the CPU: every landmark seen left and
+    right by every keyframe with 0.3 px noise, poses (but the first) and
+    landmarks perturbed."""
+    rng = np.random.default_rng(seed)
+    p = ba.make_ba_problem(8, 256, 2 * n_kf * n_lm, 400.0, 400.0, 320.0, 240.0,
+                           t_rl=[-0.11, 0.0, 0.0])
+    X = torch.from_numpy(np.stack([rng.uniform(-3, 3, n_lm), rng.uniform(-2, 2, n_lm),
+                                   rng.uniform(4, 10, n_lm)], -1).astype(np.float32))
+    R, t, kf, lm, uv, cam = p.R.clone(), p.t.clone(), [], [], [], []
+    for k in range(n_kf):
+        Rk = _rot(rng, 0.05)
+        tk = torch.tensor([0.3 * k, 0.0, 0.0]) + torch.from_numpy(
+            rng.normal(0, 0.02, 3).astype(np.float32))
+        for c in (0, 1):
+            xc = X @ Rk.T + tk + (p.t_rl if c else 0.0)
+            u = torch.stack([400 * xc[:, 0] / xc[:, 2] + 320, 400 * xc[:, 1] / xc[:, 2] + 240], -1)
+            uv.append(u + torch.from_numpy(rng.normal(0, 0.3, u.shape).astype(np.float32)))
+            kf += [k] * n_lm
+            lm += list(range(n_lm))
+            cam += [c] * n_lm
+        if k:
+            dR = _rot(rng, 0.03)
+            Rk, tk = dR @ Rk, dR @ tk + torch.from_numpy(rng.normal(0, 0.03, 3).astype(np.float32))
+        R[k], t[k] = Rk, tk
+    xyz = p.xyz.clone()
+    xyz[:n_lm] = X + torch.from_numpy(rng.normal(0, 0.05, X.shape).astype(np.float32))
+    i32 = torch.int32
+    return p._replace(R=R, t=t, kf_valid=torch.arange(8) < n_kf, kf_fixed=torch.arange(8) < 1,
+                      xyz=xyz, lm_valid=torch.arange(256) < n_lm,
+                      obs_kf=torch.tensor(kf, dtype=i32), obs_lm=torch.tensor(lm, dtype=i32),
+                      obs_uv=torch.cat(uv), obs_cam=torch.tensor(cam, dtype=i32),
+                      obs_valid=torch.ones(len(kf), dtype=torch.bool))
+
+
+def _to(tree, dev):
+    return type(tree)(*(x.to(dev) for x in tree))
+
+
+def _ring_graph(n=6, seed=3):
+    """A ring of n poses: noisy odometry edges, one loop edge, node 0 fixed."""
+    rng = np.random.default_rng(seed)
+    Rg = [_rot(rng, 0.3) for _ in range(n)]
+    tg = [torch.from_numpy(rng.normal(0, 1.0, 3).astype(np.float32)) for _ in range(n)]
+    edges = [(k + 1, k) for k in range(n - 1)] + [(n - 1, 0)]
+    ei, ej, eR, et = [], [], [], []
+    for i, j in edges:
+        Rij, tij = se3_compose(Rg[i], tg[i], *se3_inverse(Rg[j], tg[j]))
+        ei.append(i), ej.append(j), eR.append(Rij), et.append(tij)
+    R0 = torch.stack([Rg[0]] + [_rot(rng, 0.05) @ r for r in Rg[1:]])
+    t0 = torch.stack([tg[0]] + [x + torch.from_numpy(rng.normal(0, 0.1, 3).astype(np.float32))
+                                for x in tg[1:]])
+    E = len(edges)
+    return pose_graph.PoseGraph(
+        R=R0, t=t0, node_valid=torch.ones(n, dtype=torch.bool),
+        node_fixed=torch.arange(n) == 0, edge_i=torch.tensor(ei, dtype=torch.int32),
+        edge_j=torch.tensor(ej, dtype=torch.int32), edge_R=torch.stack(eR), edge_t=torch.stack(et),
+        edge_valid=torch.ones(E, dtype=torch.bool),
+        edge_weight=torch.tensor([1.0] * (E - 1) + [5.0]))
+
+
+@pytest.mark.cuda
+def test_dense_ba_and_pose_graph_on_card_match_cpu(dev):
+    p = _ba_problem()
+    cpu = ba.bundle_adjust(p, iterations=3)
+    gpu = ba.bundle_adjust(_to(p, dev), iterations=3)
+    for k in ("R", "t"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4, k
+    rel = (gpu["xyz"].cpu() - cpu["xyz"]).norm(dim=-1) / cpu["xyz"].norm(dim=-1).clamp(min=1.0)
+    assert rel.max().item() <= 1e-3
+    assert int(gpu["n_accepted"]) == int(cpu["n_accepted"]) == 3
+    assert float(gpu["rmse_after"]) < 0.5 * float(gpu["rmse_before"])
+    g = _ring_graph()
+    cpu = pose_graph.optimize_pose_graph(g, iterations=15)
+    gpu = pose_graph.optimize_pose_graph(_to(g, dev), iterations=15)
+    for k in ("R", "t"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4, k
+    assert float(gpu["cost_after"]) < float(gpu["cost_before"]) / 5
+
+
+def _recording_draw(seed):
+    """A CPU ``draw`` that keeps what it drew, and one that replays it on a device."""
+    draw, seen = bow.generator_draw(seed, "cpu"), []
+
+    def record(level, weight, n, iters):
+        seen.append(draw(level, weight, n, iters))
+        return seen[-1]
+
+    def replay_on(dev):
+        it = iter(seen)
+        return lambda level, weight, n, iters: _to(next(it), dev)
+
+    return record, replay_on
+
+
+@pytest.mark.cuda
+def test_vocabulary_tree_on_card_identical_given_draws(dev):
+    rng = np.random.default_rng(9)
+    centres = rng.integers(0, 2 ** 32, (40, 8), dtype=np.uint32)
+    desc = centres[rng.integers(0, 40, 4000)] ^ (
+        np.uint32(1) << rng.integers(0, 32, (4000, 8)).astype(np.uint32))
+    desc = torch.from_numpy(desc.view(np.int32))
+    valid = torch.from_numpy(rng.random(4000) < 0.9)
+    record, replay_on = _recording_draw(13)
+    cpu = bow.build_vocabulary_tree(desc, valid, branch=16, iters=6, draw=record)
+    gpu = bow.build_vocabulary_tree(desc.to(dev), valid.to(dev), branch=16, iters=6,
+                                    draw=replay_on(dev))
+    assert torch.equal(gpu.l1.cpu(), cpu.l1) and torch.equal(gpu.l2.cpu(), cpu.l2)
+    q, qv = desc[:1024].reshape(4, 256, 8), valid[:1024].reshape(4, 256)
+    assert torch.equal(bow.descriptors_to_bow(gpu, q.to(dev), qv.to(dev)).cpu(),
+                       bow.descriptors_to_bow(cpu, q, qv))
+
+
+@pytest.mark.cuda
+def test_run_system_with_lag_on_card(dev):
+    """12 frames at 512x384 through the full system, telemetry read 3 frames
+    late: every frame comes back in order, the kernels run 2 LK + 1 ORB per
+    frame, every keyframe after the first runs BA and no BA run worsens."""
+    seq = make_sequence(np.random.default_rng(11), n_frames=12, motion="strafe", speed=0.6,
+                        device_render=True, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=2048, kf_min_frames=2,
+                     kf_min_translation=0.04)
+    bcfg = psystem.BackendConfig(telemetry_lag=3, bow_branch=16, vocab_retrain_kfs=4)
+    s = psystem.create_system(cfg, bcfg, seq.rig, (384, 512))
+    assert s.device.type == "cuda"
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    tel, infos = psystem.run_system(s, seq.left, seq.right)
+    assert lk_cuda.lk_ragged.launches - lk0 == 24
+    assert orb_cuda.orb_steered_brief.launches - orb0 == 12
+    assert [i["frame"] for i in infos] == list(range(12))
+    assert s.host_reads["telemetry"] == 12
+    assert s.n_keyframes == int(tel.is_keyframe.sum()) >= 3
+    assert s.n_ba_runs == s.n_keyframes - 1
+    runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
+    assert all(r[1] <= 1.05 * r[0] and r[2] == 0 for r in runs)
+    assert tel.pose_ok[1:].all() and np.isfinite(tel.t_cw).all()

@@ -11,6 +11,11 @@ numpy array (done by the caller; nothing here imports JAX). Conversions:
   cropped to its true size ``[:h, :w]``;
 - the JAX PRNG key has no counterpart: the state gets ``seed`` and its
   frame counter as ``rng_step``. Keyline and IMU tables are dropped.
+
+The back end's tables (``KeyframeDB``, ``BowDatabase``, ``Vocabulary``,
+``PoseGraph``, ``BAProblem``) convert field by field (``table_from_numpy``,
+``table_to_numpy``), and a whole ``SlamSystem`` from an object with the
+reference system's attributes and numpy leaves (``system_from_numpy``).
 """
 
 from __future__ import annotations
@@ -18,10 +23,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import copy
+import dataclasses
+from types import SimpleNamespace
+
+from zenslam_tpu_torch.backend.bow import BowDatabase, Vocabulary
+from zenslam_tpu_torch.backend.keyframes import KeyframeDB
+from zenslam_tpu_torch.backend.map_archive import LandmarkArchive
 from zenslam_tpu_torch.geometry.camera import PinholeCamera, StereoRig
 from zenslam_tpu_torch.ops.lk import ragged_level_sizes
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, LandmarkMap, MotionModel, SlamConfig, SlamState)
+from zenslam_tpu_torch.pipeline.system import (
+    BackendConfig, HostCopy, KfSnap, SlamSystem)
 
 
 def config_from_dict(d) -> SlamConfig:
@@ -106,3 +120,98 @@ def state_to_numpy(state: SlamState) -> SlamState:
     return out._replace(
         features=out.features._replace(desc=out.features.desc.view(np.uint32)),
         lmap=out.lmap._replace(desc=out.lmap.desc.view(np.uint32)))
+
+
+def backend_config_from_dict(d) -> BackendConfig:
+    """BackendConfig from a mapping of the reference's field names (e.g.
+    ``dataclasses.asdict(jax_bcfg)``)."""
+    return BackendConfig(**dict(d))
+
+
+def table_from_numpy(cls, tree, device):
+    """A NamedTuple ``cls`` (KeyframeDB, BowDatabase, Vocabulary, PoseGraph,
+    BAProblem, KfSnap, …) from the same-named fields of a reference table
+    with numpy leaves. A flat vocabulary (one array) converts as a tensor."""
+    if cls is Vocabulary and not hasattr(tree, "l1"):
+        return tensor_from_numpy(tree, device)
+    return _table(cls, tree, device)
+
+
+def table_to_numpy(table):
+    """A table with every tensor made a numpy array; int32 descriptor words
+    (``KeyframeDB.kp_desc``, ``KfSnap.desc``) come back as uint32."""
+    out = _np(table)
+    if isinstance(table, KeyframeDB):
+        out = out._replace(kp_desc=out.kp_desc.view(np.uint32))
+    if isinstance(table, KfSnap):
+        out = out._replace(desc=out.desc.view(np.uint32))
+    return out
+
+
+def archive_copy(src) -> LandmarkArchive:
+    """A LandmarkArchive with the state of ``src`` (the reference's archive
+    or this package's), copied."""
+    arch = LandmarkArchive(src.desc.shape[1:], src.desc.dtype)
+    for k, v in vars(src).items():
+        setattr(arch, k, copy.deepcopy(v))
+    return arch
+
+
+def system_from_numpy(src, device, image_shape, seed: int = 0) -> SlamSystem:
+    """A SlamSystem from ``src``, an object with the reference SlamSystem's
+    attributes whose array leaves (state, tables, vocabulary, edges, queued
+    snapshots and packed reads) are numpy arrays. The configs may be the
+    reference's (converted by field) or this package's."""
+    cfg = config_from_dict(src.cfg._asdict())
+    bcfg = backend_config_from_dict(dataclasses.asdict(src.bcfg))
+    dev = torch.device(device)
+
+    def t(x):
+        return tensor_from_numpy(x, dev)
+
+    def snap(x):
+        return None if x is None else table_from_numpy(KfSnap, x, dev)
+
+    rig = src.rig if isinstance(src.rig, StereoRig) else rig_from_numpy(src.rig, dev)
+    sys = SlamSystem(
+        cfg=cfg, bcfg=bcfg, rig=rig, device=dev,
+        state=state_from_numpy(src.state, dev, image_shape=image_shape, seed=seed),
+        kf_db=table_from_numpy(KeyframeDB, src.kf_db, dev),
+        bow_db=table_from_numpy(BowDatabase, src.bow_db, dev),
+        archive=None if src.archive is None else archive_copy(src.archive),
+        vocab=None if src.vocab is None else table_from_numpy(Vocabulary, src.vocab, dev))
+    sys.edge_i = [int(i) for i in src.edge_i]
+    sys.edge_j = [int(j) for j in src.edge_j]
+    sys.edge_R = [t(np.asarray(r, np.float32)) for r in src.edge_R]
+    sys.edge_t = [t(np.asarray(x, np.float32)) for x in src.edge_t]
+    sys.edge_w = [float(w) for w in src.edge_w]
+    for name in ("last_kf_slot", "n_loop_closures", "n_ba_runs", "n_relocs", "_lost_count",
+                 "_reloc_cooldown", "n_frames", "n_keyframes", "last_vocab_kfs"):
+        setattr(sys, name, int(getattr(src, name)))
+    sys.loop_debug = copy.deepcopy(list(src.loop_debug))
+    sys.last_kf_snap = snap(src.last_kf_snap)
+    sys._tel_queue = [(HostCopy(t(p)), snap(s), int(f)) for p, s, f in src._tel_queue]
+    if src._pending_loop is not None:
+        p, slot, frame = src._pending_loop
+        sys._pending_loop = (HostCopy(t(p)), int(slot), int(frame))
+    if src._pending_spill is not None:
+        sys._pending_spill = HostCopy(t(src._pending_spill))
+    if src._pg_delta is not None:
+        sys._pg_delta = tuple(t(x) for x in src._pg_delta)
+    return sys
+
+
+def system_to_numpy(sys: SlamSystem) -> SimpleNamespace:
+    """The system's tables, state and counters with numpy leaves (descriptor
+    words as uint32), under the reference's attribute names."""
+    return SimpleNamespace(
+        state=state_to_numpy(sys.state), kf_db=table_to_numpy(sys.kf_db),
+        bow_db=table_to_numpy(sys.bow_db),
+        vocab=None if sys.vocab is None else table_to_numpy(sys.vocab),
+        archive=None if sys.archive is None else archive_copy(sys.archive),
+        edge_i=list(sys.edge_i), edge_j=list(sys.edge_j),
+        edge_R=[np.asarray(_np(r)) for r in sys.edge_R],
+        edge_t=[np.asarray(_np(x)) for x in sys.edge_t], edge_w=list(sys.edge_w),
+        last_kf_slot=sys.last_kf_slot, n_loop_closures=sys.n_loop_closures,
+        n_ba_runs=sys.n_ba_runs, n_relocs=sys.n_relocs, n_frames=sys.n_frames,
+        n_keyframes=sys.n_keyframes, last_vocab_kfs=sys.last_vocab_kfs)

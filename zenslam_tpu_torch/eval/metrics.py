@@ -1,5 +1,5 @@
 """Trajectory error (numpy) — counterpart of ``zenslam_tpu/eval/metrics.py``
-(``ate_rmse`` and what it needs)."""
+(``ate_rmse``, ``rpe_rmse`` and what they need)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,12 @@ def ate_rmse(est_pos: np.ndarray, gt_pos: np.ndarray, align: bool = True,
 def camera_positions(R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
     """(T,3,3),(T,3) world->cam extrinsics -> (T,3) camera centres."""
     return -np.einsum("tij,ti->tj", np.asarray(R_cw), np.asarray(t_cw))
+
+
+def rpe_rmse(est_pos: np.ndarray, gt_pos: np.ndarray, delta: int = 1) -> float:
+    """Relative pose (translation drift) error RMSE over a frame delta."""
+    est = np.asarray(est_pos, np.float64)
+    gt = np.asarray(gt_pos, np.float64)
+    d_est = est[delta:] - est[:-delta]
+    d_gt = gt[delta:] - gt[:-delta]
+    return float(np.sqrt(((d_est - d_gt) ** 2).sum(-1).mean()))

@@ -1,12 +1,26 @@
 """Masked-table slot allocation — counterpart of
 ``zenslam_tpu/frontend/tables.py`` (``insert_into_free_slots``,
-``allocate_landmark_slots``). Static shapes, no data-dependent sizes."""
+``allocate_landmark_slots``), and the drop-mode row scatter the tables are
+written with. Static shapes, no data-dependent sizes."""
 
 from __future__ import annotations
 
 import torch
 
 _BIG = 1 << 30
+
+
+def scatter_drop(arr, idx, vals, accumulate: bool = False):
+    """arr with rows ``idx`` set (or added) to ``vals``; an index equal to
+    len(arr) is dropped (it lands in a spare row that is cut off) — the
+    reference's ``.at[idx].set(vals, mode="drop")``."""
+    spare = torch.zeros_like(arr[:1])
+    buf = torch.cat([arr, spare])
+    if not torch.is_tensor(vals):
+        vals = torch.full((), vals, dtype=arr.dtype, device=arr.device)  # no host copy
+    buf.index_put_((idx.long(),), vals.to(arr.dtype).expand((idx.shape[0],) + arr.shape[1:]),
+                   accumulate=accumulate)
+    return buf[:-1]
 
 
 def _rank_by_score_desc(score, valid):

@@ -1,7 +1,7 @@
 """SO(3)/SE(3) operations on tensors, batched over leading dims.
 
-Counterpart of ``zenslam_tpu/geometry/lie.py`` (only what the per-frame
-step calls). Rotations are (..., 3, 3); translations (..., 3).
+Counterpart of ``zenslam_tpu/geometry/lie.py`` (what the per-frame step and
+the back end call). Rotations are (..., 3, 3); translations (..., 3).
 """
 
 from __future__ import annotations
@@ -82,6 +82,45 @@ def so3_log(R):
         branches, -2, k[..., None, None].expand(k.shape + (1, 3)))[..., 0, :]
     w_pi = signed * theta[..., None]
     return torch.where(near_pi[..., None], w_pi, scale_generic[..., None] * w_generic)
+
+
+def so3_left_jacobian(w):
+    """Left Jacobian J_l of SO(3): so3_exp(w + dw) ~ so3_exp(J_l dw) so3_exp(w)."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    W = so3_hat(w)
+    W2 = W @ W
+    b = torch.where(theta2 < 1e-10, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / (theta2 + _EPS * _EPS))
+    c = torch.where(theta2 < 1e-10, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta + _EPS))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + b[..., None, None] * W + c[..., None, None] * W2
+
+
+def so3_left_jacobian_inv(w):
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    W = so3_hat(w)
+    W2 = W @ W
+    half = 0.5 * theta
+    cot = torch.where(
+        theta2 < 1e-10, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / (torch.sin(half) + _EPS)) / (theta2 + _EPS * _EPS))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye - 0.5 * W + cot[..., None, None] * W2
+
+
+def se3_exp(xi):
+    """6-vector [rho, phi] -> (R, t) with t = J_l(phi) rho."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    return so3_exp(phi), torch.einsum("...ij,...j->...i", so3_left_jacobian(phi), rho)
+
+
+def se3_log(R, t):
+    phi = so3_log(R)
+    rho = torch.einsum("...ij,...j->...i", so3_left_jacobian_inv(phi), t)
+    return torch.cat([rho, phi], dim=-1)
 
 
 def se3_compose(Ra, ta, Rb, tb):

@@ -1,7 +1,9 @@
 """Synthetic stereo sequences — the port's own copy of the parts of
 ``zenslam_tpu/io/synthetic.py`` the slice needs: the textured corridor world,
-the host (numpy) renderer, a device (torch) renderer, the default rig and
-``make_sequence`` for the 'strafe' and 'arc' motions (no IMU, no lines).
+the closed room of the loop workload, the host (numpy) renderer, a device
+(torch) renderer, the default rig and ``make_sequence`` for the 'strafe',
+'forward', 'arc' and 'orbit' motions with optional pixel noise (no IMU, no
+lines, no photometric effects).
 
 The numpy parts are the reference's code as it stands, so the same
 generator state renders the same images in both packages.
@@ -62,6 +64,24 @@ def make_corridor_world(rng: np.random.Generator, tex_size: int = 1024) -> Plane
     offsets = -np.einsum("pi,pi->p", normals, points).astype(np.float32)
     u_axes = np.array([[1, 0, 0], [1, 0, 0], [1, 0, 0]], np.float32)
     v_axes = np.array([[0, 1, 0], [0, 0, 1], [0, 0, 1]], np.float32)
+    return PlaneWorld(normals, offsets, points, u_axes, v_axes, textures, tex_scale=96.0)
+
+
+def make_room_world(rng: np.random.Generator, tex_size: int = 1024,
+                    half: float = 3.0) -> PlaneWorld:
+    """A closed room (walls x = ±half, z = ±half, floor y = +1.5, ceiling
+    y = -1.2), each plane with its own texture: an orbit inside it revisits
+    its starting view."""
+    textures = np.stack([smooth_texture(rng, tex_size, tex_size) for _ in range(6)])
+    normals = np.array([[1.0, 0, 0], [1.0, 0, 0], [0, 0, 1.0], [0, 0, 1.0],
+                        [0, 1.0, 0], [0, 1.0, 0]], np.float32)
+    points = np.array([[half, 0, 0], [-half, 0, 0], [0, 0, half], [0, 0, -half],
+                       [0, 1.5, 0], [0, -1.2, 0]], np.float32)
+    offsets = -np.einsum("pi,pi->p", normals, points).astype(np.float32)
+    u_axes = np.array([[0, 0, 1], [0, 0, 1], [1, 0, 0], [1, 0, 0], [1, 0, 0], [1, 0, 0]],
+                      np.float32)
+    v_axes = np.array([[0, 1, 0], [0, 1, 0], [0, 1, 0], [0, 1, 0], [0, 0, 1], [0, 0, 1]],
+                      np.float32)
     return PlaneWorld(normals, offsets, points, u_axes, v_axes, textures, tex_scale=96.0)
 
 
@@ -176,15 +196,21 @@ class SyntheticSequence(NamedTuple):
 
 def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512,
                   height: int = 384, motion: str = "strafe", dt: float = 0.05,
-                  speed: float = 0.4, device_render: bool = False,
+                  speed: float = 0.4, device_render: bool = False, pixel_noise: float = 0.0,
+                  orbit_radius: float = 1.5, orbit_revolutions: float = 1.0,
                   device=None) -> SyntheticSequence:
     """Render a stereo sequence with groundtruth. motion: 'strafe' (x
-    translation) or 'arc' (translation + yaw). With device_render the frames
-    are rendered on ``device`` and returned as (T, H, W) tensors there; the
-    host renderer returns numpy arrays. The rig lives on ``device``."""
-    if motion not in ("strafe", "arc"):
-        raise NotImplementedError(f"motion {motion!r} is not ported (strafe, arc)")
-    world = make_corridor_world(rng)
+    translation), 'forward' (z), 'arc' (translation + yaw) or 'orbit'
+    (``orbit_revolutions`` turns of radius ``orbit_radius`` inside the closed
+    room, looking outward: it revisits its starting view, the loop-closure
+    workload). pixel_noise: additive Gaussian image noise σ, drawn from
+    ``rng`` after the world, left then right per frame. With device_render
+    the frames are rendered on ``device`` and returned as (T, H, W) tensors
+    there; the host renderer returns numpy arrays. The rig lives on
+    ``device``."""
+    if motion not in ("strafe", "forward", "arc", "orbit"):
+        raise NotImplementedError(f"motion {motion!r} is not ported (strafe, forward, arc, orbit)")
+    world = make_room_world(rng) if motion == "orbit" else make_corridor_world(rng)
     rig = default_rig(width, height, device)
     dev = rig.R_rl.device
     R_rl = rig.R_rl.double().cpu().numpy()
@@ -203,11 +229,27 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         if motion == "strafe":
             c_w = np.array([s, 0.0, 0.0])
             R_wc = np.eye(3)
+        elif motion == "forward":
+            c_w = np.array([0.0, 0.0, s])
+            R_wc = np.eye(3)
+        elif motion == "orbit":
+            theta = 2.0 * np.pi * orbit_revolutions * t / (n_frames * dt)
+            c_w = orbit_radius * np.array([np.sin(theta), 0.0, np.cos(theta)])
+            R_wc = so3_exp_np(np.array([0.0, theta, 0.0]))
         else:
             R_wc = so3_exp_np(np.array([0.0, 0.2 * t, 0.0]))
             c_w = np.array([s, 0.02 * np.sin(0.5 * (t / dt)), 0.3 * s])
         R_cw = R_wc.T
         return R_cw, -R_cw @ c_w
+
+    def noisy(img):
+        """The image plus Gaussian noise, clipped to [0, 1], as float32."""
+        if pixel_noise <= 0:
+            return img.astype(np.float32) if isinstance(img, np.ndarray) else img
+        n = rng.normal(0, pixel_noise, tuple(img.shape))
+        if isinstance(img, np.ndarray):
+            return np.clip(img + n, 0, 1).astype(np.float32)
+        return torch.clamp(img.double() + torch.from_numpy(n).to(img.device), 0, 1).float()
 
     timestamps = np.arange(n_frames, dtype=np.float64) * dt
     lefts, rights, Rs, ts = [], [], [], []
@@ -216,13 +258,13 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         R_rcw = R_rl @ R_cw
         t_rcw = R_rl @ t_cw + t_rl
         if device_render:
-            lefts.append(render_view_device(world, rig.left, R_cw, t_cw, height, width, dev))
-            rights.append(render_view_device(world, rig.right, R_rcw, t_rcw, height, width, dev))
-        else:  # the host render is float64; frames are float32 images
-            lefts.append(render_view(world, rig.left, R_cw, t_cw, height, width)
-                         .astype(np.float32))
-            rights.append(render_view(world, rig.right, R_rcw, t_rcw, height, width)
-                          .astype(np.float32))
+            li = render_view_device(world, rig.left, R_cw, t_cw, height, width, dev)
+            ri = render_view_device(world, rig.right, R_rcw, t_rcw, height, width, dev)
+        else:  # the host render is float64
+            li = render_view(world, rig.left, R_cw, t_cw, height, width)
+            ri = render_view(world, rig.right, R_rcw, t_rcw, height, width)
+        lefts.append(noisy(li))
+        rights.append(noisy(ri))
         Rs.append(R_cw.astype(np.float32))
         ts.append(t_cw.astype(np.float32))
     stack = torch.stack if device_render else np.stack

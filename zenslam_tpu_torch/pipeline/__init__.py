@@ -1,4 +1,5 @@
-"""State tables and the per-frame SLAM step."""
+"""State tables, the per-frame SLAM step, the sequence runner and the full
+keyframe system."""
 
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable,
@@ -10,6 +11,16 @@ from zenslam_tpu_torch.pipeline.state import (
     init_state,
 )
 from zenslam_tpu_torch.pipeline.step import slam_step
+from zenslam_tpu_torch.pipeline.runner import run_sequence
+from zenslam_tpu_torch.pipeline.system import (
+    BackendConfig,
+    SlamSystem,
+    create_system,
+    flush_pipeline,
+    process_frame,
+    run_system,
+)
 
-__all__ = ["FeatureTable", "FrameTelemetry", "LandmarkMap", "MotionModel",
-           "SlamConfig", "SlamState", "init_state", "slam_step"]
+__all__ = ["BackendConfig", "FeatureTable", "FrameTelemetry", "LandmarkMap", "MotionModel",
+           "SlamConfig", "SlamState", "SlamSystem", "create_system", "flush_pipeline",
+           "init_state", "process_frame", "run_sequence", "run_system", "slam_step"]

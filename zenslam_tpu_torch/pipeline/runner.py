@@ -1,0 +1,45 @@
+"""Sequence runner for the per-frame step — counterpart of
+``zenslam_tpu/pipeline/runner.py``.
+
+Both modes run the same frame loop and stack the telemetry on the device at
+the end (one device->host copy per field for the whole run). ``mode="stream"``
+copies each frame to the device as it is reached; ``mode="scan"`` (the
+reference's ``lax.scan`` offline path) copies the whole sequence first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zenslam_tpu_torch.geometry.camera import StereoRig
+from zenslam_tpu_torch.pipeline.state import SlamConfig, init_state, resolve_device
+from zenslam_tpu_torch.pipeline.step import slam_step
+
+
+def run_sequence(cfg: SlamConfig, rig: StereoRig, left, right, seed: int = 0,
+                 mode: str = "stream", state=None, imu=None, device=None):
+    """Run SLAM over a (T, H, W) stereo sequence (numpy arrays or tensors) on
+    ``device`` (default: the given state's, else CUDA, raising when absent).
+    Returns (final_state, telemetry stacked over T as numpy). ``imu`` is not
+    ported (ROADMAP Queue 1 item 11) and raises."""
+    if mode not in ("stream", "scan"):
+        raise ValueError(f"unknown mode {mode!r} (stream, scan)")
+    if imu is not None:
+        raise NotImplementedError(
+            "imu is not ported to zenslam_tpu_torch yet, see ROADMAP.md Queue 1 item 11 (IMU/VIO)")
+    T, H, W = left.shape
+    dev = state.R_cw.device if state is not None else resolve_device(device)
+    if state is None:
+        state = init_state(cfg, (H, W), seed=seed, device=dev)
+
+    def frames(x):
+        return torch.as_tensor(x, dtype=torch.float32).to(dev)
+
+    if mode == "scan":
+        left, right = frames(left), frames(right)
+    tels = []
+    for t in range(T):
+        il, ir = (left[t], right[t]) if mode == "scan" else (frames(left[t]), frames(right[t]))
+        state, tel = slam_step(cfg, rig, state, il, ir)
+        tels.append(tel)
+    return state, type(tels[0])(*(torch.stack(xs).cpu().numpy() for xs in zip(*tels)))

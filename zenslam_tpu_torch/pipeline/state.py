@@ -179,6 +179,28 @@ class FrameTelemetry(NamedTuple):
     t_cw: torch.Tensor
 
 
+_TEL_N_SCALARS = 13  # fields before R_cw/t_cw
+
+
+def pack_telemetry(tel: FrameTelemetry) -> torch.Tensor:
+    """Flatten a FrameTelemetry to one (25,) f32 tensor on its device: the 13
+    scalars, then R_cw row-major, then t_cw. The host reads a frame with one
+    copy instead of one per field."""
+    scalars = torch.stack([f.to(torch.float32).reshape(()) for f in tel[:_TEL_N_SCALARS]])
+    return torch.cat([scalars, tel.R_cw.reshape(-1).to(torch.float32),
+                      tel.t_cw.to(torch.float32)])
+
+
+def unpack_telemetry(vec) -> FrameTelemetry:
+    """Host inverse of ``pack_telemetry``: a FrameTelemetry of numpy values
+    from a (25,) numpy array or CPU tensor."""
+    import numpy as np
+
+    v = vec.numpy() if isinstance(vec, torch.Tensor) else np.asarray(vec)
+    k = _TEL_N_SCALARS
+    return FrameTelemetry(*v[:k], R_cw=v[k:k + 9].reshape(3, 3), t_cw=v[k + 9:k + 12])
+
+
 def resolve_use_kernels(cfg: SlamConfig, device) -> bool:
     """Whether the hand-kernel path runs (None = auto: CUDA yes, CPU no)."""
     if cfg.use_pallas_lk is None:

@@ -10,7 +10,7 @@ On the kernel path (``resolve_use_kernels``) the two KLT stages run
 ``ops/lk_cuda.lk_ragged`` and the describe stage ``ops/orb_cuda``; otherwise
 the f32 gather fallbacks the reference runs off-TPU. The reference's
 ``.at[].set(mode="drop")`` scatters become explicit masks: dropped rows go to
-a spare row past the end of the table (``_scatter``).
+a spare row past the end of the table (``frontend/tables.scatter_drop``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from zenslam_tpu_torch.estimation.cascade import (
     CascadeNoise, draw_cascade_noise, estimate_pose_cascade)
-from zenslam_tpu_torch.frontend.tables import allocate_landmark_slots, insert_into_free_slots
+from zenslam_tpu_torch.frontend.tables import (
+    allocate_landmark_slots, insert_into_free_slots, scatter_drop as _scatter)
 from zenslam_tpu_torch.geometry.camera import (
     StereoRig, essential_from_pose, fundamental_from_rig, project)
 from zenslam_tpu_torch.geometry.lie import (
@@ -37,18 +38,6 @@ from zenslam_tpu_torch.pipeline.state import (
     check_supported, frame_generator, pyramid_dtype, resolve_use_kernels)
 
 _I32 = torch.int32
-
-
-def _scatter(arr, idx, vals, accumulate: bool = False):
-    """arr with rows ``idx`` set (or added) to ``vals``; an index equal to
-    len(arr) is dropped (it lands in a spare row that is cut off)."""
-    spare = torch.zeros_like(arr[:1])
-    buf = torch.cat([arr, spare])
-    if not torch.is_tensor(vals):
-        vals = torch.tensor(vals, dtype=arr.dtype, device=arr.device)
-    buf.index_put_((idx.long(),), vals.to(arr.dtype).expand((idx.shape[0],) + arr.shape[1:]),
-                   accumulate=accumulate)
-    return buf[:-1]
 
 
 def _mark(n: int, idx, device):
