@@ -34,13 +34,33 @@ Phases (each one fatal on failure):
    LK + 1 ORB launches per timed frame, >= 8 keyframes (the vocabulary
    retrain at 8 runs), a BA run on every keyframe after the first, each
    with rmse_after <= 1.05 rmse_before and no dropped observations,
-   pose_ok >= 0.9 and ATE < 0.05 m;
+   pose_ok >= 0.9 and ATE < 0.05 m. Two untimed repeats of the 80-frame
+   run (one as it is, one under ``torch.use_deterministic_algorithms``)
+   print how far each window's rmse_before differs from the timed run's,
+   and every window's robust cost, rmse and five worst residuals
+   (keyframe, landmark, px) before and after BA;
 7. loop: the 64-frame 320x240 orbit of ``tests/test_loop_closure.py``
    (seed 21, pixel noise 0.01, radius 1.0, host render) through
    ``run_system`` twice, loop closure off and on with that test's configs:
    at least one loop closes, and the keyframe ATE with loops is below the
    one without; 2 LK + 1 ORB launches per frame in each run;
-8. a ``kernels`` JSON line (``launches`` is the system phase's count,
+8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
+   448x336 orbit, frames 80-95 skipped) for the port alone, relocalisation
+   off and on, on the kernel path and on the f32 path that test runs: the
+   kidnap breaks the run without reloc (tail revisit error > 1 m), 1-4
+   relocalisations happen with it, on the f32 path one at or after the
+   kidnap; prints each attempt;
+9. app: the shipped EuRoC recipe through ``zenslam_tpu_torch.app.main`` on
+   an 80-frame 752x480 EuRoC-layout dataset rendered through
+   ``options/euroc_camchain.yaml`` (distorted radtan; rectification, CLAHE,
+   the native reader, telemetry, ``--no-imu --no-scene``), checked by
+   ``zenslam_tpu_torch.eval.check_run`` against
+   ``options/euroc_mh_expected.json`` (ATE, RPE, mean tracked, problem-frame
+   share; steady ms/frame and fps reported, no fps floor): 2 LK + 1 ORB
+   launches per frame, a BA run per keyframe after the first; the LK kernel
+   against its plain version on the app's first pyramids; a checkpoint
+   after frame 40 loaded back bit-identical;
+10. a ``kernels`` JSON line (``launches`` is the system phase's count,
    ``launches_by_path`` every path's), the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -83,6 +103,8 @@ N_FRAMES = 40        # slice phase: frames of the rendered sequence it runs
 N_WARMUP = 8
 SYSTEM_FRAMES = 80   # system phase (bench.py:run_full_system_fps)
 SYSTEM_WARMUP = 10
+APP_FRAMES = 80      # app phase: the exported EuRoC-layout sequence
+APP_CKPT_FRAME = 40  # app phase: the checkpoint round trip saves after this frame
 SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -336,6 +358,36 @@ def lk_bytes(prev, nxt, xy, valid, tracked, ok, radius: int, bwd_levels: int) ->
     return total
 
 
+def check_lk_cases(tag: str, cases: dict, xy, valid, args: dict) -> float:
+    """The LK kernel against its plain version on each (prev pyramid, next
+    pyramid, init_pts) case: max |dxy| <= 0.01 px on rows ok in both, ok
+    flags agreeing on >= 99% of valid rows, invalid rows passed through.
+    Returns the largest |dxy|."""
+    import torch
+
+    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged, lk_ragged_plain
+
+    max_err = 0.0
+    for name, (a, b, ip) in cases.items():
+        tk, ok_k, _ = lk_ragged(a, b, xy, valid, init_pts=ip, **args)
+        tp, ok_p, _ = lk_ragged_plain(a, b, xy, valid, init_pts=ip, **args)
+        torch.cuda.synchronize()
+        both = ok_k & ok_p
+        agree = float((ok_k == ok_p)[valid].float().mean())
+        d = float((tk - tp).abs()[both].max()) if bool(both.any()) else 0.0
+        max_err = max(max_err, d)
+        print(f"[{tag}] {name}: ok kernel {int(ok_k.sum())} plain {int(ok_p.sum())}, "
+              f"flags agree {agree:.4f}, max |dxy| on ok-in-both {d:.2e} px")
+        require(torch.isfinite(tk).all(), f"{tag} {name}: non-finite output")
+        require(int(both.sum()) >= 0.5 * int(valid.sum()), f"{tag} {name}: too few tracks")
+        require(d <= 0.01, f"{tag} {name}: |dxy| {d} > 0.01 px")
+        require(agree >= 0.99, f"{tag} {name}: ok flags agree on {agree:.4f} < 0.99")
+        inv = ~valid
+        require(bool((tk[inv] == xy[inv]).all()) and not bool(ok_k[inv].any()),
+                f"{tag} {name}: invalid rows not passed through")
+    return max_err
+
+
 def phase_lk(seq, xy, valid, dev, compare: list):
     import torch
 
@@ -351,24 +403,7 @@ def phase_lk(seq, xy, valid, dev, compare: list):
                 fb_threshold=1.0)
     cases = {"temporal": (l0, l1, None), "temporal+init": (l0, l1, init),
              "stereo": (s0, r0, None)}
-    max_err = 0.0
-    for name, (a, b, ip) in cases.items():
-        tk, ok_k, _ = lk_ragged(a, b, xy, valid, init_pts=ip, **args)
-        tp, ok_p, _ = lk_ragged_plain(a, b, xy, valid, init_pts=ip, **args)
-        torch.cuda.synchronize()
-        both = ok_k & ok_p
-        agree = float((ok_k == ok_p)[valid].float().mean())
-        d = float((tk - tp).abs()[both].max()) if bool(both.any()) else 0.0
-        max_err = max(max_err, d)
-        print(f"[lk] {name}: ok kernel {int(ok_k.sum())} plain {int(ok_p.sum())}, "
-              f"flags agree {agree:.4f}, max |dxy| on ok-in-both {d:.2e} px")
-        require(torch.isfinite(tk).all(), f"lk {name}: non-finite output")
-        require(int(both.sum()) >= 0.5 * int(valid.sum()), f"lk {name}: too few tracks")
-        require(d <= 0.01, f"lk {name}: |dxy| {d} > 0.01 px")
-        require(agree >= 0.99, f"lk {name}: ok flags agree on {agree:.4f} < 0.99")
-        inv = ~valid
-        require(bool((tk[inv] == xy[inv]).all()) and not bool(ok_k[inv].any()),
-                f"lk {name}: invalid rows not passed through")
+    max_err = check_lk_cases("lk", cases, xy, valid, args)
 
     dirs = compared("lk_fb", compare)
     tp, ok_p, _ = lk_ragged_plain(l0, l1, xy, valid, init_pts=init, **args)
@@ -665,6 +700,7 @@ def phase_system(seq, dev):
     print(f"[system] implicit synchronises outside it (the step, telemetry): {nf} "
           f"({nf / n:.3f} per frame); by line: "
           + ", ".join(f"{k} x{v}" for k, v in front.most_common(16)))
+    repeat_system(seq, cfg, bcfg, runs)
     require(launches == {"lk_fb": 2 * n, "orb": n},
             f"system: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
     require(s.n_keyframes >= 8, f"system: {s.n_keyframes} keyframes < 8")
@@ -676,6 +712,106 @@ def phase_system(seq, dev):
     require(ok_share >= 0.9, f"system: pose_ok on {ok_share:.3f} < 0.9 of frames")
     require(ate < 0.05, f"system: ATE {ate:.4f} m >= 0.05 m")
     return launches
+
+
+@contextlib.contextmanager
+def worst_residuals(system_module, windows: list):
+    """Inside the block, append to ``windows``, for every windowed BA, its
+    five worst observations before and after it (keyframe index in the
+    window, 0 = newest; landmark index in the compacted problem; px) and
+    [robust cost before, after, rmse before, after, accepted LM steps,
+    observations]."""
+    import torch
+
+    from zenslam_tpu_torch.backend.ba import _residuals_and_weights
+
+    inner = system_module.bundle_adjust
+
+    def top5(p, R, t, xyz):
+        r, _, good, *_ = _residuals_and_weights(p, R, t, xyz, 1.0)
+        n = torch.where(good, torch.linalg.vector_norm(r, dim=-1), -1.0)
+        v, i = torch.topk(n, 5)
+        return [(int(p.obs_kf[j]), int(p.obs_lm[j]), round(float(x), 2))
+                for j, x in zip(i.tolist(), v.tolist())]
+
+    def logged(p, **kwargs):
+        res = inner(p, **kwargs)
+        windows.append((top5(p, p.R, p.t, p.xyz), top5(p, res["R"], res["t"], res["xyz"]),
+                        [round(float(res[k]), 3) for k in ("cost_before", "cost_after",
+                                                            "rmse_before", "rmse_after")]
+                        + [int(res["n_accepted"]), int(p.obs_valid.sum())]))
+        return res
+
+    system_module.bundle_adjust = logged
+    try:
+        yield
+    finally:
+        system_module.bundle_adjust = inner
+
+
+def run_windows(seq, cfg, bcfg, deterministic: bool = False):
+    """One untimed 80-frame system run: (the BA runs' [rmse_before,
+    rmse_after, dropped], the five worst residuals of each window)."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.system import create_system, flush_pipeline, process_frame
+
+    windows, runs = [], []
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        with worst_residuals(system, windows):
+            s = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
+            infos = [process_frame(s, seq.left[t], seq.right[t])[1] for t in range(SYSTEM_FRAMES)]
+            infos += [i for _, i in flush_pipeline(s)]
+            runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return runs, windows
+
+
+def scatter_determinism(dev) -> None:
+    """Whether a float scatter-add gives the same bits on every run: 20
+    repeats of ``index_add_`` and of ``index_put_(accumulate=True)`` (what
+    ``backend.ba.seg_add_`` uses on CUDA) over 60000 random (6, 6) rows
+    into 16384 slots, as BA's block sums do."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.randint(0, 16384, (60000,), device=dev, generator=g)
+    vals = torch.randn(60000, 6, 6, device=dev, generator=g)
+    for name, fn in (("index_add_", lambda z: z.index_add_(0, idx, vals)),
+                     ("index_put_ accumulate", lambda z: z.index_put_((idx,), vals,
+                                                                      accumulate=True))):
+        outs = [fn(torch.zeros(16384, 6, 6, device=dev)) for _ in range(20)]
+        same = sum(torch.equal(outs[0], o) for o in outs[1:])
+        diff = float((torch.stack(outs) - outs[0]).abs().max())
+        print(f"[system] {name}: {same} of 19 repeats bit-identical to the first, max |diff| "
+              f"{diff:.3e}")
+
+
+def repeat_system(seq, cfg, bcfg, timed_runs):
+    """Run the 80-frame system again, once as it is and once under
+    ``torch.use_deterministic_algorithms``, and print how far each BA
+    window's rmse_before differs from the timed run's, and each window's
+    robust cost, rmse and five worst residuals before and after BA."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    scatter_determinism(seq.left.device)
+    reps = {name: run_windows(seq, cfg, bcfg, det) for name, det in
+            (("again", False), ("deterministic", True))}
+    base = np.array([r[0] for r in timed_runs])
+    for name, (runs, _) in reps.items():
+        b = np.array([r[0] for r in runs])
+        if len(b) != len(base):
+            print(f"[system] repeat {name}: {len(b)} BA windows, the timed run {len(base)}")
+            continue
+        print(f"[system] repeat {name}: max |rmse_before - timed run's| "
+              f"{float(np.abs(b - base).max()):.3e} px over {len(b)} windows")
+    for w, (before, after, stats) in enumerate(reps["again"][1]):
+        print(f"[system] window {w}: robust cost, rmse before/after, accepted LM steps, "
+              f"observations {stats}; worst residuals (kf, lm, px) before {before} after {after}")
 
 
 def kf_ate(kf_db, seq) -> float:
@@ -732,6 +868,214 @@ def phase_loop(dev):
     return dict(total)
 
 
+def phase_app(dev):
+    """The shipped EuRoC recipe's vision path through the port's app: a
+    synthetic EuRoC-layout dataset rendered through options/euroc_camchain.yaml
+    (752x480, distorted radtan, strafe, pixel noise 0.005, APP_FRAMES
+    frames, no IMU), ``app.main`` with euroc_mh.yaml's slam and backend
+    sections, ``calibration_file`` set and ``--no-imu --no-scene``, then the
+    port's checker against options/euroc_mh_expected.json; the LK kernel
+    against its plain version on the app's first pyramids (rectified, CLAHE,
+    752x480: levels 188 and 94 are not whole 16-byte chunks); a checkpoint
+    saved after frame APP_CKPT_FRAME and loaded back, bit-identical."""
+    import io
+    import tempfile
+    from itertools import islice
+
+    import torch
+    import yaml
+
+    from zenslam_tpu_torch import app
+    from zenslam_tpu_torch.config import load_options
+    from zenslam_tpu_torch.eval import check_run
+    from zenslam_tpu_torch.io import checkpoint
+    from zenslam_tpu_torch.io.calibration import compute_rectify_maps, load_kalibr_yaml
+    from zenslam_tpu_torch.io.dataset import FolderReader
+    from zenslam_tpu_torch.io.synthetic import export_dataset, make_distorted_sequence
+    from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
+    from zenslam_tpu_torch.ops.image import clahe, remap
+    from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
+    from zenslam_tpu_torch.pipeline.system import create_system, process_frame
+
+    here = Path(__file__).resolve().parent
+    camchain = here / "options" / "euroc_camchain.yaml"
+    t0 = time.perf_counter()
+    rig_raw, models = load_kalibr_yaml(str(camchain), device=dev)
+    seq = make_distorted_sequence(np.random.default_rng(9), rig_raw, models,
+                                  n_frames=APP_FRAMES, motion="strafe", pixel_noise=0.005,
+                                  device_render=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "mav0", Path(tmp) / "out"
+        export_dataset(seq, str(root))
+        t_export = time.perf_counter() - t0
+        recipe = yaml.safe_load((here / "options" / "euroc_mh.yaml").read_text())
+        opts_path = Path(tmp) / "euroc_mh.yaml"
+        opts_path.write_text(yaml.safe_dump({
+            "folder": {"root": str(root), "output": str(out), "calibration_file": str(camchain),
+                       "groundtruth_file": str(root / "groundtruth.csv")},
+            "slam": recipe["slam"], "backend": recipe["backend"]}))
+        print(f"[app] exported {APP_FRAMES} stereo frames 752x480 (distorted radtan) in "
+              f"{t_export:.1f} s; recipe slam {recipe['slam']}, backend {recipe['backend']}")
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = app.main(["--options-file", str(opts_path), "--no-imu", "--no-scene",
+                           "--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.strip():
+                print(f"[app] | {line}")
+        require(rc == 0, f"app: exit code {rc}")
+        m = re.search(r"keyframes: (\d+), BA runs: (\d+), loop closures: (\d+)", text)
+        require(m is not None, "app: no keyframe line")
+        n_kf, n_ba, n_loops = (int(x) for x in m.groups())
+        r = check_run.check(str(out))
+        exp = r.get("exp", {})
+        print(f"[app] launches {launches}; keyframes {n_kf}, BA runs {n_ba}, loop closures "
+              f"{n_loops}")
+        print(f"[app] checker: ATE {r.get('ate_mm', float('nan')):.1f} mm (bound "
+              f"{exp.get('ate_bound_mm')}), RPE {r.get('rpe_mm', float('nan')):.1f} mm (bound "
+              f"{exp.get('rpe_bound_mm')}), mean tracked {r.get('mean_tracked', 0):.1f} (min "
+              f"{exp.get('min_tracked_mean')}), problem-frame share "
+              f"{r.get('problem_fraction', 1):.3f} (max {exp.get('max_problem_frame_fraction')})")
+        print(f"[app] steady {r.get('steady_ms', float('nan')):.2f} ms/frame, "
+              f"{r.get('steady_fps', float('nan')):.2f} fps ({r.get('slow_frames')} frames over "
+              f"100 ms) on {check_run.card_line()}")
+        require(not r["failures"], f"app: checker failed: {r['failures']}")
+        require(launches == {"lk_fb": 2 * APP_FRAMES, "orb": APP_FRAMES},
+                f"app: launches {launches} != 2 LK + 1 ORB per frame over {APP_FRAMES} frames")
+        require(n_ba == n_kf - 1 and n_kf >= 3, f"app: {n_ba} BA runs for {n_kf} keyframes")
+
+        opts = load_options(str(opts_path))
+        maps = compute_rectify_maps(rig_raw, models)
+        mx = [torch.from_numpy(m).to(dev) for m in maps[:4]]
+
+        def prep(frame):
+            return (remap(app.upload(frame.left, dev), mx[0], mx[1]),
+                    remap(app.upload(frame.right, dev), mx[2], mx[3]))
+
+        frames = list(islice(FolderReader(str(root)).frames(), 2))
+        (a0, b0), (a1, _) = (prep(f) for f in frames)
+        a0, b0, a1 = (clahe(x, clip_limit=opts.slam.clahe_clip) for x in (a0, b0, a1))
+        bf16 = torch.bfloat16
+        L = opts.slam.pyramid_levels
+        l0, l1 = build_ragged_pyramid_pair(a0, a1, L, dtype=bf16)
+        s0, r0 = build_ragged_pyramid_pair(a0, b0, L, dtype=bf16)
+        print(f"[app] LK pyramid level widths {[int(x.shape[1]) for x in l0]}")
+        N = opts.slam.max_keypoints
+        xy, _, valid = detect_grid_keypoints(
+            a0, torch.zeros((N, 2), device=dev), torch.zeros(N, dtype=torch.bool, device=dev),
+            max_keypoints=N, subpixel=True)
+        g = torch.Generator(device=dev).manual_seed(5)
+        init = xy + 0.5 * torch.randn(xy.shape, generator=g, device=dev)
+        args = dict(radius=opts.slam.klt_radius, iters=(5, 3, 3, 3), bwd_levels=1,
+                    compute_err=False, fb_threshold=1.0)
+        lk_err = check_lk_cases("app", {"temporal": (l0, l1, None),
+                                        "temporal+init": (l0, l1, init),
+                                        "stereo": (s0, r0, None)}, xy, valid, args)
+
+        ck = Path(tmp) / "system.npz"
+        s = create_system(opts.slam, opts.backend, maps.rig_rectified, (480, 752), device=dev)
+        for f in islice(FolderReader(str(root)).frames_prefetch(), APP_CKPT_FRAME):
+            process_frame(s, *prep(f))
+        checkpoint.save_system(str(ck), s)
+        s2 = checkpoint.load_system(str(ck), opts.slam, opts.backend, maps.rig_rectified,
+                                    (480, 752), device=dev)
+        trees = [{"state": x.state, "kf_db": x.kf_db, "bow_db": x.bow_db,
+                  "vocab": x.vocab, "queue": [q[1] for q in x._tel_queue]} for x in (s, s2)]
+        la, lb = (checkpoint._flatten(t) for t in trees)
+        same = [n for n, _ in la] == [n for n, _ in lb] and all(
+            (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y))
+            if isinstance(x, torch.Tensor) else x == y for (_, x), (_, y) in zip(la, lb))
+        same &= all(np.array_equal(p.numpy(), q.numpy())
+                    for (p, _, _), (q, _, _) in zip(s._tel_queue, s2._tel_queue))
+        same &= (s.edge_i == s2.edge_i and s.edge_j == s2.edge_j and s.edge_w == s2.edge_w
+                 and all(np.array_equal(checkpoint._to_numpy(x), y)
+                         for x, y in zip(s.edge_R + s.edge_t, s2.edge_R + s2.edge_t)))
+        a, b = s.archive, s2.archive
+        same &= (all(np.array_equal(getattr(a, k), getattr(b, k))
+                     for k in ("xyz", "desc", "color", "dormant", "_slot_row", "_slot_gen"))
+                 and a._row_key == b._row_key and a.reload_keys == b.reload_keys)
+        print(f"[app] checkpoint after frame {APP_CKPT_FRAME}: {len(la)} tensors and numbers "
+              f"of state, keyframe DB ({s.n_keyframes} keyframes), BoW DB, vocabulary and "
+              f"telemetry queue ({len(s._tel_queue)}), {len(s.edge_i)} edges, archive "
+              f"{len(a)} rows: {'bit-identical' if same else 'DIFFERENT'} after load_system "
+              f"({ck.stat().st_size / 2 ** 20:.1f} MiB)")
+        require(same, "app: checkpoint round trip on the card is not bit-identical")
+    print(f"[app] phase {time.perf_counter() - t0:.1f} s")
+    return launches, lk_err
+
+
+def phase_kidnap(dev):
+    """tests/test_place_recognition.py::TestRelocalizationAfterKidnap's run
+    for the port alone: the 112-frame 448x336 orbit (1.75 turns, seed 33,
+    pixel noise 0.01; rendered on the card), frames 80-95 skipped, loops on
+    with a frame gap that never fires, relocalisation off and on; once on
+    the main (kernel) path and once on the f32 path the reference's test
+    runs (``use_pallas_lk=False``: f32 pyramid, the gather LK, no kernel).
+    Requires on both: the run without reloc broken (tail revisit error >
+    1 m), 1-4 relocalisations with it; on the f32 path one of them at or
+    after the kidnap. Prints each attempt (frame, chosen keyframe's frame,
+    score, inliers) and the tail errors (the reference's own 0.35 m bound is
+    red in the reference and is not applied)."""
+    import torch
+
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, process_frame
+
+    t0 = time.perf_counter()
+    n, jump = 112, 80
+    seq = make_sequence(np.random.default_rng(33), n_frames=n, width=448, height=336,
+                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0,
+                        orbit_revolutions=1.75, device_render=True, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
+                     kf_min_translation=0.05)
+    order = list(range(0, jump)) + list(range(96, n))
+    launches = Counter()
+    for path, pcfg in (("kernel", cfg), ("f32", cfg._replace(use_pallas_lk=False))):
+        out = {}
+        for reloc in (False, True):
+            bc = BackendConfig(ba_every_kf=False, enable_loop_closure=True,
+                               enable_relocalization=reloc, reloc_lost_frames=1,
+                               reloc_min_inliers=12, reloc_cooldown=10, bow_levels=2,
+                               bow_branch=32, bow_min_score=0.20, bow_min_frame_gap=100000,
+                               bow_top_k=3, loop_min_inliers=12, vocab_retrain_kfs=8)
+            s = create_system(pcfg, bc, seq.rig, (336, 448), device=dev)
+            centers = {}
+            reset_launches()
+            for fi in order:
+                tel, _ = process_frame(s, seq.left[fi], seq.right[fi])
+                centers[fi] = -tel.R_cw.T @ tel.t_cw
+            torch.cuda.synchronize()
+            if path == "kernel":
+                launches.update(read_launches())
+            err = float(np.mean([np.linalg.norm(centers[f] - centers[f - 64])
+                                 for f in range(n - 3, n)]))
+            kf_frames = s.kf_db.frame_idx.cpu().numpy()
+            events = [dict(d, kf_frame=int(kf_frames[d["slot"]])) for d in s.reloc_debug]
+            out[reloc] = (s, err, events)
+            print(f"[kidnap] {path} path, reloc {'on' if reloc else 'off'}: relocs {s.n_relocs}, "
+                  f"keyframes {s.n_keyframes}, tail revisit error {err:.4f} m; attempts "
+                  f"(frame = frames processed, the kidnap at {jump}) {events}")
+        (_, err_off, _), (s_on, err_on, events) = out[False], out[True]
+        require(err_off > 1.0, f"kidnap {path}: without reloc the tail error {err_off:.3f} m "
+                               "<= 1 m (the kidnap did not break the run)")
+        require(1 <= s_on.n_relocs <= 4,
+                f"kidnap {path}: {s_on.n_relocs} relocalisations (want 1-4)")
+        after = [e for e in events if e["fired"] and e["frame"] >= jump]
+        print(f"[kidnap] {path} path: {len(after)} relocalisation(s) at or after the kidnap; "
+              f"tail error {err_off:.4f} m without reloc, {err_on:.4f} m with")
+        if path == "f32":
+            require(after, "kidnap f32: no relocalisation at or after the kidnap")
+    print(f"[kidnap] phase {time.perf_counter() - t0:.1f} s")
+    require(dict(launches) == {"lk_fb": 4 * len(order), "orb": 2 * len(order)},
+            f"kidnap: launches {dict(launches)} on the kernel path")
+    return dict(launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="DIR",
@@ -754,6 +1098,9 @@ def main() -> int:
         orb = phase_orb(seq, xy, valid, dev, compare)
         paths = {"slice": phase_slice(seq, dev), "system": phase_system(seq, dev),
                  "loop": phase_loop(dev)}
+        paths["kidnap"] = phase_kidnap(dev)
+        paths["app"], app_lk_err = phase_app(dev)
+        lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

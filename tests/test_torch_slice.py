@@ -166,7 +166,7 @@ def test_convert_round_trip(reference_run):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_clahe", True), ("use_keylines", True), ("descriptor", "sift"),
+    ("use_keylines", True), ("descriptor", "sift"),
     ("detector", "harris"), ("describe_refresh", 4), ("use_pose_fusion", True)])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -334,7 +334,9 @@ def test_no_module_of_the_port_imports_jax():
     names = sorted(m.name for m in pkgutil.walk_packages(zenslam_tpu_torch.__path__,
                                                          "zenslam_tpu_torch."))
     assert {"zenslam_tpu_torch.pipeline.system", "zenslam_tpu_torch.backend.ba",
-            "zenslam_tpu_torch.pipeline.demo"} <= set(names)
+            "zenslam_tpu_torch.pipeline.demo", "zenslam_tpu_torch.app",
+            "zenslam_tpu_torch.io.dataset", "zenslam_tpu_torch.io.checkpoint",
+            "zenslam_tpu_torch.native.loader"} <= set(names)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

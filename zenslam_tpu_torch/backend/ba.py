@@ -79,11 +79,23 @@ def make_ba_problem(K, M, O, fx, fy, cx, cy, fx_r=None, fy_r=None, cx_r=None,
     )
 
 
+def seg_add_(out, idx, vals):
+    """``out[idx[k]] += vals[k]`` for every row k, in place, with the same
+    result on every run: on CUDA ``index_put_`` with ``accumulate`` sorts the
+    indices and sums each group in turn, where ``index_add_`` races float
+    atomics whose order changes the last bits of each sum from run to run
+    (and, through BA's write-back, later keyframe decisions). On the CPU
+    ``index_add_`` already adds in row order."""
+    if out.device.type == "cuda":
+        return out.index_put_((idx.long(),), vals, accumulate=True)
+    return out.index_add_(0, idx, vals)
+
+
 def _seg_sum(n: int, idx, vals):
     """(n, ...) sums of ``vals`` rows grouped by ``idx`` (the reference's
     ``zeros.at[idx].add``)."""
     out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
+    return seg_add_(out, idx, vals)
 
 
 def _residuals_and_weights(p: BAProblem, R, t, xyz, huber_delta: float):

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from zenslam_tpu_torch.backend.ba import cholesky_solve_or_zero
+from zenslam_tpu_torch.backend.ba import cholesky_solve_or_zero, seg_add_
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_exp, se3_inverse, so3_hat, so3_vee
 
 
@@ -107,14 +107,14 @@ def optimize_pose_graph(g: PoseGraph, iterations: int = 20, init_lambda: float =
         JjW = Jj * w[:, None, None]
         # dense H (K, 6, K, 6): four block scatters per edge
         H = torch.zeros((K * K, 6, 6), dtype=torch.float32, device=dev)
-        H.index_add_(0, i * K + i, torch.einsum("eai,eaj->eij", JiW, Ji))
-        H.index_add_(0, j * K + j, torch.einsum("eai,eaj->eij", JjW, Jj))
-        H.index_add_(0, i * K + j, torch.einsum("eai,eaj->eij", JiW, Jj))
-        H.index_add_(0, j * K + i, torch.einsum("eai,eaj->eij", JjW, Ji))
+        seg_add_(H, i * K + i, torch.einsum("eai,eaj->eij", JiW, Ji))
+        seg_add_(H, j * K + j, torch.einsum("eai,eaj->eij", JjW, Jj))
+        seg_add_(H, i * K + j, torch.einsum("eai,eaj->eij", JiW, Jj))
+        seg_add_(H, j * K + i, torch.einsum("eai,eaj->eij", JjW, Ji))
         H = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
         b = torch.zeros((K, 6), dtype=torch.float32, device=dev)
-        b.index_add_(0, i, -torch.einsum("eai,ea->ei", JiW, r))
-        b.index_add_(0, j, -torch.einsum("eai,ea->ei", JjW, r))
+        seg_add_(b, i, -torch.einsum("eai,ea->ei", JiW, r))
+        seg_add_(b, j, -torch.einsum("eai,ea->ei", JjW, r))
         Hf = H + lam * eye
         Hf = Hf * m[:, None] * m[None, :] + torch.diag(1.0 - m)
         dx = cholesky_solve_or_zero(Hf, b.reshape(K * 6) * m)

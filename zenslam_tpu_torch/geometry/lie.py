@@ -151,3 +151,53 @@ def rotation_angle(R):
     """Rotation angle in radians of a rotation matrix."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+def se3_identity(dtype=torch.float32, device=None):
+    return torch.eye(3, dtype=dtype, device=device), torch.zeros(3, dtype=dtype, device=device)
+
+
+def quat_to_rotmat(q):
+    """Quaternion (w, x, y, z) -> rotation matrix. Normalizes the input."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+def rotmat_to_quat(R):
+    """Rotation matrix -> quaternion (w, x, y, z) with w >= 0 (Shepperd's
+    method, branch-free: the candidate of the largest pivot)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    k = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, 4)
+    q = torch.gather(cands, -2, k[..., None, None].expand(k.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.sign(q[..., :1] + _EPS)
+
+
+def quat_slerp(q0, q1, alpha):
+    """Spherical linear interpolation, alpha in [0, 1]; handles the double
+    cover (q1 flipped into q0's hemisphere)."""
+    dot = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs()
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    safe = torch.where(sin_t < 1e-6, torch.ones_like(sin_t), sin_t)
+    lerp = (1 - alpha) * q0 + alpha * q1
+    slerp = torch.sin((1 - alpha) * theta) / safe * q0 + torch.sin(alpha * theta) / safe * q1
+    out = torch.where(sin_t < 1e-6, lerp, slerp)
+    return out / torch.linalg.norm(out, dim=-1, keepdim=True)

@@ -1,9 +1,12 @@
 """Synthetic stereo sequences — the port's own copy of the parts of
-``zenslam_tpu/io/synthetic.py`` the slice needs: the textured corridor world,
+``zenslam_tpu/io/synthetic.py`` the port needs: the textured corridor world,
 the closed room of the loop workload, the host (numpy) renderer, a device
-(torch) renderer, the default rig and ``make_sequence`` for the 'strafe',
+(torch) renderer, the default rig, ``make_sequence`` for the 'strafe',
 'forward', 'arc' and 'orbit' motions with optional pixel noise (no IMU, no
-lines, no photometric effects).
+lines, no photometric effects), and the dataset writers: sequences rendered
+through a distorted camchain (``make_distorted_sequence``,
+``distort_sequence``), Kalibr YAML, PNG and EuRoC-layout folders
+(``export_dataset``).
 
 The numpy parts are the reference's code as it stands, so the same
 generator state renders the same images in both packages.
@@ -11,6 +14,7 @@ generator state renders the same images in both packages.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -86,14 +90,17 @@ def make_room_world(rng: np.random.Generator, tex_size: int = 1024,
 
 
 def render_view(world: PlaneWorld, cam: PinholeCamera, R_cw: np.ndarray,
-                t_cw: np.ndarray, height: int, width: int) -> np.ndarray:
+                t_cw: np.ndarray, height: int, width: int, rays_cam=None) -> np.ndarray:
     """Host render of one view by ray-plane intersection + bilinear texture
-    lookup; float32 (H, W) in [0, 1]."""
+    lookup; float32 (H, W) in [0, 1]. ``rays_cam`` (H, W, 3): per-pixel
+    camera rays of a distorted camera (default: the pinhole rays)."""
     fx, fy, cx, cy = float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)
     R_wc = R_cw.T
     c = -R_wc @ t_cw
-    u, v = np.meshgrid(np.arange(width, dtype=np.float32), np.arange(height, dtype=np.float32))
-    rays_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], axis=-1)
+    if rays_cam is None:
+        u, v = np.meshgrid(np.arange(width, dtype=np.float32),
+                           np.arange(height, dtype=np.float32))
+        rays_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], axis=-1)
     rays_w = rays_cam @ R_wc.T
     img = np.zeros((height, width), np.float32)
     depth = np.full((height, width), np.inf, np.float32)
@@ -127,19 +134,23 @@ def render_view(world: PlaneWorld, cam: PinholeCamera, R_cw: np.ndarray,
 
 
 def render_view_device(world: PlaneWorld, cam: PinholeCamera, R_cw, t_cw,
-                       height: int, width: int, device) -> torch.Tensor:
+                       height: int, width: int, device, rays_cam=None) -> torch.Tensor:
     """The same ray-plane render in f32 torch on ``device`` (1024² frames in
-    milliseconds on a card instead of seconds on the host). Returns (H, W)."""
+    milliseconds on a card instead of seconds on the host). Returns (H, W).
+    ``rays_cam``: as for ``render_view``."""
     f32 = torch.float32
     tex_all = torch.as_tensor(world.textures, dtype=f32, device=device)
     R_cw = torch.as_tensor(np.asarray(R_cw, np.float32), device=device)
     t_cw = torch.as_tensor(np.asarray(t_cw, np.float32), device=device)
     R_wc = R_cw.T
     c = -R_wc @ t_cw
-    v, u = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
-                          torch.arange(width, dtype=f32, device=device), indexing="ij")
-    rays_cam = torch.stack([(u - float(cam.cx)) / float(cam.fx),
-                            (v - float(cam.cy)) / float(cam.fy), torch.ones_like(u)], -1)
+    if rays_cam is None:
+        v, u = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
+                              torch.arange(width, dtype=f32, device=device), indexing="ij")
+        rays_cam = torch.stack([(u - float(cam.cx)) / float(cam.fx),
+                                (v - float(cam.cy)) / float(cam.fy), torch.ones_like(u)], -1)
+    else:
+        rays_cam = torch.as_tensor(np.asarray(rays_cam, np.float32), device=device)
     rays_w = rays_cam @ R_wc.T
     img = torch.zeros((height, width), dtype=f32, device=device)
     depth = torch.full((height, width), float("inf"), dtype=f32, device=device)
@@ -270,3 +281,171 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
     stack = torch.stack if device_render else np.stack
     return SyntheticSequence(left=stack(lefts), right=stack(rights), R_lw=np.stack(Rs),
                              t_lw=np.stack(ts), timestamps=timestamps, rig=rig)
+
+
+def distort_sequence(seq: SyntheticSequence, dist, model: str = "radtan") -> SyntheticSequence:
+    """The raw (lens-distorted) version of a pinhole-rendered sequence:
+    RAW(p_d) = Ideal(K·undistort(K⁻¹·p_d)), remapped on the host (CPU
+    float32). Feeding it through the rectification path must give back the
+    ideal geometry."""
+    from zenslam_tpu_torch.geometry.camera import (
+        undistort_points_equidistant, undistort_points_radtan)
+    from zenslam_tpu_torch.ops.image import remap
+
+    cam = seq.rig.left
+    H, W = seq.left.shape[1:]
+    fx, fy, cx, cy = float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    nd = np.stack([(u - cx) / fx, (v - cy) / fy], -1).reshape(-1, 2)
+    undist = undistort_points_radtan if model == "radtan" else undistort_points_equidistant
+    nu = undist(torch.as_tensor(np.asarray(dist), dtype=torch.float32), torch.from_numpy(nd))
+    mx = (nu[:, 0] * fx + cx).reshape(H, W)
+    my = (nu[:, 1] * fy + cy).reshape(H, W)
+
+    def warp(frames):
+        return np.stack([remap(torch.as_tensor(np.asarray(f)).cpu(), mx, my).numpy()
+                         for f in frames])
+
+    return seq._replace(left=warp(seq.left), right=warp(seq.right))
+
+
+def write_kalibr_yaml(seq: SyntheticSequence, dist, path: str, model: str = "radtan") -> None:
+    """A Kalibr camchain YAML of the (distorted) synthetic rig, read back by
+    ``io.calibration.load_kalibr_yaml``."""
+    import yaml
+
+    cam = seq.rig.left
+    H, W = seq.left.shape[1:]
+    T_rl = np.eye(4)
+    T_rl[:3, :3] = seq.rig.R_rl.cpu().numpy()
+    T_rl[:3, 3] = seq.rig.t_rl.cpu().numpy()
+    entry = {
+        "camera_model": "pinhole",
+        "intrinsics": [float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)],
+        "distortion_model": model,
+        "distortion_coeffs": [float(x) for x in dist],
+        "resolution": [int(W), int(H)],
+    }
+    d = {"cam0": dict(entry, T_cam_imu=np.eye(4).tolist()),
+         "cam1": dict(entry, T_cn_cnm1=T_rl.tolist())}
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """Minimal grayscale PNG writer (zlib): 8 or 16 bit, filter 0."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+    depth = 16 if img.dtype == np.uint16 else 8
+
+    def chunk(tag, body):
+        out = struct.pack(">I", len(body)) + tag + body
+        return out + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+    rows = img.astype(">u2") if depth == 16 else img.astype(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rows.view(np.uint8).reshape(h, -1)], axis=1).tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def export_dataset(seq: SyntheticSequence, root: str) -> None:
+    """Write a sequence as an EuRoC-style folder: 8-bit PNGs named by
+    nanosecond timestamps under cam0/data and cam1/data, and groundtruth.csv
+    (ns, camera centre, R_wc quaternion w x y z). Device-rendered frames are
+    quantised on their device and copied once per frame."""
+    from zenslam_tpu_torch.geometry.lie import rotmat_to_quat
+
+    os.makedirs(os.path.join(root, "cam0/data"), exist_ok=True)
+    os.makedirs(os.path.join(root, "cam1/data"), exist_ok=True)
+    t0_ns = 1_000_000_000
+
+    def to_u8(img):
+        if isinstance(img, torch.Tensor):
+            return torch.clamp(img * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
+        return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+    gt_rows = []
+    for i in range(seq.left.shape[0]):
+        ns = int(seq.timestamps[i] * 1e9) + t0_ns
+        write_png_gray(os.path.join(root, f"cam0/data/{ns}.png"), to_u8(seq.left[i]))
+        write_png_gray(os.path.join(root, f"cam1/data/{ns}.png"), to_u8(seq.right[i]))
+        R = seq.R_lw[i]
+        c = -R.T @ seq.t_lw[i]
+        q = rotmat_to_quat(torch.from_numpy(np.ascontiguousarray(R.T))).numpy()
+        gt_rows.append([ns, c[0], c[1], c[2], q[0], q[1], q[2], q[3]])
+    np.savetxt(os.path.join(root, "groundtruth.csv"), np.asarray(gt_rows), delimiter=",")
+
+
+def distorted_camera_rays(cam: PinholeCamera, model: str = "radtan") -> np.ndarray:
+    """Per-pixel camera-frame ray directions (H, W, 3) of a distorted
+    camera: normalized-distorted -> normalized-undistorted -> [x, y, 1]
+    (float32 on the CPU)."""
+    from zenslam_tpu_torch.geometry.camera import undistort_points_radtan
+
+    if model != "radtan":
+        raise NotImplementedError(f"distorted rendering for model {model!r}")
+    H, W = int(cam.height), int(cam.width)
+    fx, fy, cx, cy = float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy)
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    xd = np.stack([(u - cx) / fx, (v - cy) / fy], axis=-1).reshape(-1, 2)
+    xu = undistort_points_radtan(cam.dist.cpu(), torch.from_numpy(xd)).numpy()
+    rays = np.concatenate([xu, np.ones((xu.shape[0], 1), np.float32)], axis=-1)
+    return rays.reshape(H, W, 3)
+
+
+def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
+                            models=("radtan", "radtan"), n_frames: int = 12,
+                            motion: str = "strafe", dt: float = 0.1, speed: float = 0.25,
+                            pixel_noise: float = 0.0,
+                            device_render: bool = False) -> SyntheticSequence:
+    """A stereo sequence rendered through a real (distorted) camchain rig,
+    e.g. ``options/euroc_camchain.yaml``: the images are in the distorted
+    geometry, so an app run with ``folder.calibration_file`` set to the same
+    camchain goes through rectification before tracking. motion: 'strafe'
+    or a slow forward arc. Groundtruth poses are the left camera's. With
+    ``device_render`` the frames are rendered on the rig's device and
+    returned as (T, H, W) tensors there (noise drawn from ``rng`` in the same
+    order as the host path)."""
+    world = make_corridor_world(rng)
+    H, W = int(rig_raw.left.height), int(rig_raw.left.width)
+    rays_l = distorted_camera_rays(rig_raw.left, models[0])
+    rays_r = distorted_camera_rays(rig_raw.right, models[1])
+    R_rl = rig_raw.R_rl.double().cpu().numpy()
+    t_rl = rig_raw.t_rl.double().cpu().numpy()
+    dev = rig_raw.R_rl.device
+
+    def render(cam, R, t, rays):
+        if device_render:
+            return render_view_device(world, cam, R, t, H, W, dev, rays_cam=rays)
+        return render_view(world, cam, R, t, H, W, rays_cam=rays)
+
+    def noisy(img):
+        if pixel_noise <= 0:
+            return img
+        n = rng.normal(0, pixel_noise, tuple(img.shape))
+        if device_render:
+            return torch.clamp(img.double() + torch.from_numpy(n).to(dev), 0, 1)
+        return np.clip(img + n, 0, 1)
+
+    timestamps = np.arange(n_frames, dtype=np.float64) * dt
+    lefts, rights, Rs, ts = [], [], [], []
+    for i in range(n_frames):
+        s = timestamps[i] * speed
+        c_w = np.array([s, 0.0, 0.0]) if motion == "strafe" else np.array([0.6 * s, 0.0, 0.4 * s])
+        R_cw = np.eye(3)
+        t_cw = -R_cw @ c_w
+        li = noisy(render(rig_raw.left, R_cw, t_cw, rays_l))
+        ri = noisy(render(rig_raw.right, R_rl @ R_cw, R_rl @ t_cw + t_rl, rays_r))
+        lefts.append(li.float() if device_render else li.astype(np.float32))
+        rights.append(ri.float() if device_render else ri.astype(np.float32))
+        Rs.append(R_cw.astype(np.float32))
+        ts.append(t_cw.astype(np.float32))
+    stack = torch.stack if device_render else np.stack
+    return SyntheticSequence(left=stack(lefts), right=stack(rights), R_lw=np.stack(Rs),
+                             t_lw=np.stack(ts), timestamps=timestamps, rig=rig_raw)

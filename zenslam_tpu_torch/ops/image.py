@@ -1,6 +1,7 @@
-"""Image ops: Gaussian blur, pyrDown pyramid, Scharr gradients — counterpart
-of ``zenslam_tpu/ops/image.py``. Images are float tensors (H, W) or
-(B, H, W) in [0, 1].
+"""Image ops: gray conversion, Gaussian blur, pyrDown pyramid, bilinear
+sampling and remap, CLAHE, Scharr gradients — counterpart of
+``zenslam_tpu/ops/image.py``. Images are float tensors (H, W) or (B, H, W)
+in [0, 1].
 
 The separable filters are shift-and-add with reflect padding in the same tap
 order as the reference. XLA's CPU backend contracts each tap's multiply-add
@@ -13,6 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def rgb_to_gray(img):
+    """(..., H, W, 3) uint8 or [0, 1] float -> (..., H, W) float32 in [0, 1]."""
+    scale = 1.0 / 255.0 if img.dtype == torch.uint8 else 1.0
+    img = img.to(torch.float32) * scale
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=img.device)
+    return torch.einsum("...c,c->...", img, w)
 
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
@@ -108,6 +117,81 @@ def build_pyramid(img, levels: int = 4):
     for _ in range(levels):
         pyr.append(_pyr_down(pyr[-1]))
     return tuple(pyr)
+
+
+def bilinear_sample(img, xy, pad_value: float = 0.0):
+    """Bilinearly sample img (H, W) at xy (..., 2) in (x, y) pixel
+    coordinates, as a gather of the four corners; a corner outside the image
+    contributes ``pad_value``."""
+    H, W = img.shape
+    x, y = xy[..., 0], xy[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = x - x0
+    wy = y - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    flat = img.reshape(-1)
+
+    def at(yi, xi):
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = torch.take(flat, yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
+        return torch.where(valid, v, torch.full_like(v, pad_value))
+
+    v00 = at(y0i, x0i)
+    v01 = at(y0i, x0i + 1)
+    v10 = at(y0i + 1, x0i)
+    v11 = at(y0i + 1, x0i + 1)
+    return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
+            + v10 * (1 - wx) * wy + v11 * wx * wy)
+
+
+def remap(img, map_x, map_y):
+    """cv::remap analogue: out[i, j] = img(map_x[i, j], map_y[i, j]),
+    bilinear, zero outside (the rectification maps of io/calibration.py)."""
+    return bilinear_sample(img, torch.stack([map_x, map_y], dim=-1))
+
+
+def clahe(img, clip_limit: float = 4.0, grid: int = 8, nbins: int = 256):
+    """Contrast-limited adaptive histogram equalization (OpenCV's CLAHE):
+    per-tile histogram, clip and redistribute the excess uniformly, CDF
+    lookup, bilinear blend of the four neighbouring tiles' mappings.
+
+    img: (H, W) float32 in [0, 1], H and W divisible by ``grid``. The bin is
+    ``int(img * (nbins - 1))`` (truncation, as the reference), so the caller's
+    scaling of 8-bit data decides the bins. Histograms are counted by
+    ``index_add_`` of ones over (tile, bin): integer counts in f32, exact in
+    any order of the atomics (``bincount`` would read its input's maximum
+    back to the host on CUDA)."""
+    H, W = img.shape
+    th, tw = H // grid, W // grid
+    q = torch.clamp((img * (nbins - 1)).to(torch.int64), 0, nbins - 1)
+    tile = (torch.arange(H, device=img.device) // th)[:, None] * grid \
+        + (torch.arange(W, device=img.device) // tw)[None, :]
+    flat = (tile * nbins + q).reshape(-1)
+    hist = torch.zeros(grid * grid * nbins, dtype=torch.float32, device=img.device)
+    hist = hist.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                               device=img.device)).reshape(grid, grid, nbins)
+    limit = clip_limit * (th * tw) / nbins
+    excess = torch.clamp(hist - limit, min=0.0).sum(-1, keepdim=True)
+    hist = torch.clamp(hist, max=limit) + excess / nbins
+    cdf = torch.cumsum(hist, dim=-1)
+    lut = (cdf / cdf[..., -1:]).reshape(-1)   # (grid * grid * nbins) bin -> [0, 1]
+
+    yy = (torch.arange(H, dtype=torch.float32, device=img.device) + 0.5) / th - 0.5
+    xx = (torch.arange(W, dtype=torch.float32, device=img.device) + 0.5) / tw - 0.5
+    y0 = torch.clamp(torch.floor(yy), 0, grid - 1).to(torch.int64)
+    x0 = torch.clamp(torch.floor(xx), 0, grid - 1).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, 0, grid - 1)
+    x1 = torch.clamp(x0 + 1, 0, grid - 1)
+    fy = torch.clamp(yy - y0, 0.0, 1.0)[:, None]
+    fx = torch.clamp(xx - x0, 0.0, 1.0)[None, :]
+
+    def lookup(ti, tj):
+        return torch.take(lut, (ti[:, None] * grid + tj[None, :]) * nbins + q)
+
+    return (lookup(y0, x0) * (1 - fy) * (1 - fx) + lookup(y0, x1) * (1 - fy) * fx
+            + lookup(y1, x0) * fy * (1 - fx) + lookup(y1, x1) * fy * fx)
 
 
 def scharr_gradients(img):

@@ -69,10 +69,12 @@ def _window_offsets(radius: int, device):
     return torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)  # (K, 2)
 
 
-def _sample_clamped(img, xy, w, h):
+def _sample_clamped(img, xy, w, h, *more):
     """Bilinear sample with edge replication w.r.t. level bounds (w, h):
     coordinates clamp into [0, w-1.0001] x [0, h-1.0001]. img is the (H, W)
-    buffer holding the level at its top-left."""
+    buffer holding the level at its top-left. Each image in ``more`` (same
+    shape) is sampled at the same points with the same weights, and a tuple
+    is returned."""
     H, W = img.shape
     x = torch.minimum(torch.clamp(xy[..., 0], min=0.0), w - 1.0001)
     y = torch.minimum(torch.clamp(xy[..., 1], min=0.0), h - 1.0001)
@@ -84,13 +86,18 @@ def _sample_clamped(img, xy, w, h):
     y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
     x1i = torch.clamp(x0i + 1, 0, W - 1)
     y1i = torch.clamp(y0i + 1, 0, H - 1)
-    flat = img.reshape(-1)
-    v00 = flat[y0i * W + x0i]
-    v01 = flat[y0i * W + x1i]
-    v10 = flat[y1i * W + x0i]
-    v11 = flat[y1i * W + x1i]
-    return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
-            + v10 * (1 - wx) * wy + v11 * wx * wy)
+    corners = (y0i * W + x0i, y0i * W + x1i, y1i * W + x0i, y1i * W + x1i)
+    ax, ay = 1 - wx, 1 - wy
+
+    def sample(im):
+        # torch.take: the same gather as advanced indexing, at a fraction of its cost
+        flat = im.reshape(-1)
+        v00, v01, v10, v11 = (torch.take(flat, i) for i in corners)
+        return v00 * ax * ay + v01 * wx * ay + v10 * ax * wy + v11 * wx * wy
+
+    if not more:
+        return sample(img)
+    return tuple(sample(im) for im in (img, *more))
 
 
 def _lk_core(prev_stack, prev_gx, prev_gy, next_stack, sizes, pts, init_pts,
@@ -110,9 +117,7 @@ def _lk_core(prev_stack, prev_gx, prev_gy, next_stack, sizes, pts, init_pts,
             prev_stack[lvl], prev_gx[lvl], prev_gy[lvl], next_stack[lvl])
         pts_l = pts * scale
         win = pts_l[:, None, :] + offs[None, :, :]
-        Ip = _sample_clamped(prev_img, win, w, h)
-        gx = _sample_clamped(gx_img, win, w, h)
-        gy = _sample_clamped(gy_img, win, w, h)
+        Ip, gx, gy = _sample_clamped(prev_img, win, w, h, gx_img, gy_img)
         gxx = (gx * gx).sum(-1)
         gxy = (gx * gy).sum(-1)
         gyy = (gy * gy).sum(-1)

@@ -91,20 +91,21 @@ def check_supported(cfg: SlamConfig, imu=None) -> None:
     """Raise NotImplementedError for configurations this port does not run
     yet, naming the ROADMAP.md item that will port them."""
     todo = []
-    if cfg.use_clahe:
-        todo.append("use_clahe (Queue 1: other detector/descriptor families, ops/image.py:clahe)")
     if cfg.use_keylines:
-        todo.append("use_keylines (Queue 1: keylines, ops/lines.py + pipeline/lines_step.py)")
+        todo.append("use_keylines (Queue 1 item 13: keylines, ops/lines.py + "
+                    "pipeline/lines_step.py)")
     if imu is not None:
-        todo.append("imu (Queue 1: IMU/VIO)")
+        todo.append("imu (Queue 1 item 11: IMU/VIO)")
     if cfg.descriptor != "orb":
-        todo.append(f"descriptor={cfg.descriptor!r} (Queue 1: other detector/descriptor families)")
+        todo.append(f"descriptor={cfg.descriptor!r} (Queue 1 item 12: other detector/"
+                    "descriptor families)")
     if cfg.detector != "fast":
-        todo.append(f"detector={cfg.detector!r} (Queue 1: other detector/descriptor families)")
+        todo.append(f"detector={cfg.detector!r} (Queue 1 item 12: other detector/"
+                    "descriptor families)")
     if cfg.describe_refresh > 1:
-        todo.append("describe_refresh > 1 (Queue 1: the describe_refresh merge)")
+        todo.append("describe_refresh > 1 (Queue 1 item 12: the describe_refresh merge)")
     if cfg.use_pose_fusion:
-        todo.append("use_pose_fusion (Queue 1: estimation/fusion.py)")
+        todo.append("use_pose_fusion (Queue 1 item 10: estimation/fusion.py)")
     if todo:
         raise NotImplementedError(
             "not ported to zenslam_tpu_torch yet, see ROADMAP.md: " + "; ".join(todo))

@@ -27,6 +27,7 @@ from zenslam_tpu_torch.geometry.lie import (
     rotation_angle, se3_apply, se3_compose, se3_inverse, so3_exp, so3_log)
 from zenslam_tpu_torch.geometry.triangulate import epipolar_residual, triangulate_dlt
 from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
+from zenslam_tpu_torch.ops.image import clahe
 from zenslam_tpu_torch.ops.lk import (
     build_ragged_pyramid_pair, lk_forward_backward, ragged_to_stacked)
 from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
@@ -222,6 +223,9 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     dev = img_l.device
     use_k = resolve_use_kernels(cfg, dev)
     N = cfg.max_keypoints
+    if cfg.use_clahe:   # before the pyramid, detection and description
+        img_l = clahe(img_l, clip_limit=cfg.clahe_clip)
+        img_r = clahe(img_r, clip_limit=cfg.clahe_clip)
     pyr_l, pyr_r = build_ragged_pyramid_pair(img_l, img_r, cfg.pyramid_levels,
                                              dtype=pyramid_dtype(cfg, dev))
     F_rig = fundamental_from_rig(rig)

@@ -188,6 +188,7 @@ class SlamSystem:
     n_keyframes: int = 0
     last_vocab_kfs: int = 0
     loop_debug: list = field(default_factory=list)
+    reloc_debug: list = field(default_factory=list)    # one entry per reloc attempt
     # blocking host reads by kind (telemetry, loop, spill, reloc, reload)
     host_reads: Counter = field(default_factory=Counter)
     _tel_queue: list = field(default_factory=list)     # [(HostCopy, KfSnap, frame_idx)]
@@ -422,9 +423,13 @@ def _try_relocalize(sys: SlamSystem, noise=None) -> bool:
     sys.host_reads["reloc"] += 1
     arr = packed.cpu().numpy()
     k = min(k, sys.bcfg.max_keyframes)
-    scores, n_inl = arr[:k], arr[2 * k: 3 * k]
+    scores, slots, n_inl = arr[:k], arr[k:2 * k], arr[2 * k: 3 * k]
     best = int(np.argmax(n_inl))
-    if n_inl[best] < sys.bcfg.loop_min_inliers or scores[best] < sys.bcfg.bow_min_score:
+    fired = not (n_inl[best] < sys.bcfg.loop_min_inliers or scores[best] < sys.bcfg.bow_min_score)
+    sys.reloc_debug.append({"frame": sys.n_frames - 1, "slot": int(slots[best]),
+                            "score": float(scores[best]), "n_inliers": int(n_inl[best]),
+                            "fired": fired})
+    if not fired:
         return False
     dev = sys.device
     R = torch.from_numpy(arr[3 * k + 9 * best: 3 * k + 9 * (best + 1)].reshape(3, 3).copy()).to(dev)
