@@ -52,15 +52,34 @@ Phases (each one fatal on failure):
    kidnap; prints each attempt;
 9. app: the shipped EuRoC recipe through ``zenslam_tpu_torch.app.main`` on
    an 80-frame 752x480 EuRoC-layout dataset rendered through
-   ``options/euroc_camchain.yaml`` (distorted radtan; rectification, CLAHE,
-   the native reader, telemetry, ``--no-imu --no-scene``), checked by
-   ``zenslam_tpu_torch.eval.check_run`` against
+   ``options/euroc_camchain.yaml`` (distorted radtan, 20 Hz frames, an
+   ``imu0/data.csv`` at 200 Hz, 10 samples a frame, in the IMU frame that
+   the camchain's ``T_cam_imu`` places; rectification, CLAHE, the native
+   reader, telemetry, ``--no-scene``), run as shipped (the IMU stream drives
+   the VIO branch) and again with ``--no-imu``, each checked
+   by ``zenslam_tpu_torch.eval.check_run`` against
    ``options/euroc_mh_expected.json`` (ATE, RPE, mean tracked, problem-frame
    share; steady ms/frame and fps reported, no fps floor): 2 LK + 1 ORB
-   launches per frame, a BA run per keyframe after the first; the LK kernel
+   launches per frame, a BA run per keyframe after the first; the IMU run's
+   gravity within 0.5 m/s² of the truth in the SLAM world (the first
+   rectified left camera) and its last velocity's error; the LK kernel
    against its plain version on the app's first pyramids; a checkpoint
-   after frame 40 loaded back bit-identical;
-10. a ``kernels`` JSON line (``launches`` is the system phase's count,
+   after frame 40 of the IMU run (VioState included) loaded back
+   bit-identical;
+10. fulldress: ``e2e_fulldress.py``'s default dataset (1024x1024, radtan
+   ``[-0.12, 0.035, 0.0006, -0.0004]``, 'arc' at speed 0.5, seed 11, IMU,
+   rendered on the card), FULLDRESS_FRAMES frames through ``app.main`` with
+   ``slam: {use_pose_fusion: true}`` and that script's backend, with the
+   IMU stream and again with ``--no-imu``: ATE under the script's 100 mm,
+   pose_ok share, gravity within 0.5 m/s² of the truth and the last
+   velocity's error, how often the inertial candidate won the fusion,
+   steady ms/frame of both runs, 2 LK + 1 ORB launches per frame, what the
+   VIO branch adds to one ``slam_step`` (the state before the middle frame,
+   rectified, with its IMU slice; device kernels and busy ms by
+   ``torch.profiler``, host ms over 10 alternating pairs),
+   and the implicit synchronises by source line, none of them in ``imu/``
+   or ``estimation/fusion.py``;
+11. a ``kernels`` JSON line (``launches`` is the system phase's count,
    ``launches_by_path`` every path's), the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -87,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
 import re
 import subprocess
@@ -105,6 +125,8 @@ SYSTEM_FRAMES = 80   # system phase (bench.py:run_full_system_fps)
 SYSTEM_WARMUP = 10
 APP_FRAMES = 80      # app phase: the exported EuRoC-layout sequence
 APP_CKPT_FRAME = 40  # app phase: the checkpoint round trip saves after this frame
+FULLDRESS_FRAMES = 60
+FULLDRESS_DIST = [-0.12, 0.035, 0.0006, -0.0004]   # e2e_fulldress.py's radtan
 SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -868,17 +890,97 @@ def phase_loop(dev):
     return dict(total)
 
 
+@contextlib.contextmanager
+def captured_systems():
+    """The systems ``create_system`` makes meanwhile (``app.main`` keeps its
+    own), in order."""
+    from zenslam_tpu_torch.pipeline import system as psystem
+
+    created = []
+    create = psystem.create_system
+
+    def capture(*args, **kwargs):
+        created.append(create(*args, **kwargs))
+        return created[-1]
+
+    psystem.create_system = capture
+    try:
+        yield created
+    finally:
+        psystem.create_system = create
+
+
+def rectifying_rotation(rig) -> np.ndarray:
+    """cam0 -> rectified cam0, as ``compute_rectify_maps`` builds it (the
+    baseline becomes the x axis); identity for a rig already rectified."""
+    R_rl = rig.R_rl.double().cpu().numpy()
+    t_rl = rig.t_rl.double().cpu().numpy()
+    c1 = -R_rl.T @ t_rl
+    ex = c1 / np.linalg.norm(c1)
+    ey = np.cross([0.0, 0.0, 1.0], ex)
+    ey /= np.linalg.norm(ey)
+    return np.stack([ex, ey, np.cross(ex, ey)])
+
+
+def vio_errors(vio, seq, R_rect) -> tuple:
+    """|g - g_true| (m/s²) and the last frame's |v - v_true| (m/s), the truth
+    mapped into the SLAM world: the first frame's rectified left camera."""
+    from zenslam_tpu_torch.eval.metrics import camera_positions
+
+    R0 = R_rect @ seq.R_lw[0].astype(np.float64)
+    g_err = float(np.linalg.norm(vio.gravity_w.cpu().numpy() - R0 @ seq.gravity_w))
+    P = camera_positions(seq.R_lw, seq.t_lw)
+    dt = float(seq.timestamps[-1] - seq.timestamps[-2])
+    v_err = float(np.linalg.norm(vio.v_world.cpu().numpy() - R0 @ (P[-1] - P[-2]) / dt))
+    return g_err, v_err
+
+
+def run_app(tag: str, opts_path, out, dev, extra=()):
+    """``app.main`` on an options file, its output printed under ``[tag]``;
+    returns (launches, the checker's result, keyframes, BA runs, printed
+    text)."""
+    import io
+
+    import torch
+
+    from zenslam_tpu_torch import app
+    from zenslam_tpu_torch.eval import check_run
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = app.main(["--options-file", str(opts_path), "--no-scene", "--device", str(dev),
+                       *extra])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            print(f"[{tag}] | {line}")
+    require(rc == 0, f"{tag}: exit code {rc}")
+    m = re.search(r"keyframes: (\d+), BA runs: (\d+), loop closures: (\d+)", text)
+    require(m is not None, f"{tag}: no keyframe line")
+    n_kf, n_ba, n_loops = (int(x) for x in m.groups())
+    r = check_run.check(str(out))
+    print(f"[{tag}] launches {launches}; keyframes {n_kf}, BA runs {n_ba}, loop closures "
+          f"{n_loops}; steady {r.get('steady_ms', float('nan')):.2f} ms/frame, "
+          f"{r.get('steady_fps', float('nan')):.2f} fps ({r.get('slow_frames')} frames over "
+          f"100 ms) on {check_run.card_line()}")
+    return launches, r, n_kf, n_ba, text
+
+
 def phase_app(dev):
-    """The shipped EuRoC recipe's vision path through the port's app: a
-    synthetic EuRoC-layout dataset rendered through options/euroc_camchain.yaml
-    (752x480, distorted radtan, strafe, pixel noise 0.005, APP_FRAMES
-    frames, no IMU), ``app.main`` with euroc_mh.yaml's slam and backend
-    sections, ``calibration_file`` set and ``--no-imu --no-scene``, then the
+    """The shipped EuRoC recipe through the port's app: a synthetic
+    EuRoC-layout dataset rendered through options/euroc_camchain.yaml
+    (752x480, distorted radtan, strafe at 0.5 m/s, 20 Hz frames, pixel noise
+    0.005, APP_FRAMES frames, an imu0/data.csv at 200 Hz), ``app.main`` with
+    euroc_mh.yaml's slam and backend sections and ``calibration_file`` set,
+    once ``--no-imu`` and once as shipped (IMU), each run checked by the
     port's checker against options/euroc_mh_expected.json; the LK kernel
     against its plain version on the app's first pyramids (rectified, CLAHE,
     752x480: levels 188 and 94 are not whole 16-byte chunks); a checkpoint
-    saved after frame APP_CKPT_FRAME and loaded back, bit-identical."""
-    import io
+    of the IMU run saved after frame APP_CKPT_FRAME and loaded back,
+    bit-identical. Returns ({run: launches}, LK max |dxy|)."""
     import tempfile
     from itertools import islice
 
@@ -887,7 +989,6 @@ def phase_app(dev):
 
     from zenslam_tpu_torch import app
     from zenslam_tpu_torch.config import load_options
-    from zenslam_tpu_torch.eval import check_run
     from zenslam_tpu_torch.io import checkpoint
     from zenslam_tpu_torch.io.calibration import compute_rectify_maps, load_kalibr_yaml
     from zenslam_tpu_torch.io.dataset import FolderReader
@@ -902,8 +1003,9 @@ def phase_app(dev):
     t0 = time.perf_counter()
     rig_raw, models = load_kalibr_yaml(str(camchain), device=dev)
     seq = make_distorted_sequence(np.random.default_rng(9), rig_raw, models,
-                                  n_frames=APP_FRAMES, motion="strafe", pixel_noise=0.005,
-                                  device_render=True)
+                                  n_frames=APP_FRAMES, motion="strafe", dt=0.05, speed=0.5,
+                                  pixel_noise=0.005, device_render=True, with_imu=True)
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         root, out = Path(tmp) / "mav0", Path(tmp) / "out"
         export_dataset(seq, str(root))
@@ -914,39 +1016,33 @@ def phase_app(dev):
             "folder": {"root": str(root), "output": str(out), "calibration_file": str(camchain),
                        "groundtruth_file": str(root / "groundtruth.csv")},
             "slam": recipe["slam"], "backend": recipe["backend"]}))
-        print(f"[app] exported {APP_FRAMES} stereo frames 752x480 (distorted radtan) in "
-              f"{t_export:.1f} s; recipe slam {recipe['slam']}, backend {recipe['backend']}")
-        reset_launches()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = app.main(["--options-file", str(opts_path), "--no-imu", "--no-scene",
-                           "--device", str(dev)])
-        torch.cuda.synchronize()
-        launches = read_launches()
-        text = buf.getvalue()
-        for line in text.splitlines():
-            if line.strip():
-                print(f"[app] | {line}")
-        require(rc == 0, f"app: exit code {rc}")
-        m = re.search(r"keyframes: (\d+), BA runs: (\d+), loop closures: (\d+)", text)
-        require(m is not None, "app: no keyframe line")
-        n_kf, n_ba, n_loops = (int(x) for x in m.groups())
-        r = check_run.check(str(out))
-        exp = r.get("exp", {})
-        print(f"[app] launches {launches}; keyframes {n_kf}, BA runs {n_ba}, loop closures "
-              f"{n_loops}")
-        print(f"[app] checker: ATE {r.get('ate_mm', float('nan')):.1f} mm (bound "
-              f"{exp.get('ate_bound_mm')}), RPE {r.get('rpe_mm', float('nan')):.1f} mm (bound "
-              f"{exp.get('rpe_bound_mm')}), mean tracked {r.get('mean_tracked', 0):.1f} (min "
-              f"{exp.get('min_tracked_mean')}), problem-frame share "
-              f"{r.get('problem_fraction', 1):.3f} (max {exp.get('max_problem_frame_fraction')})")
-        print(f"[app] steady {r.get('steady_ms', float('nan')):.2f} ms/frame, "
-              f"{r.get('steady_fps', float('nan')):.2f} fps ({r.get('slow_frames')} frames over "
-              f"100 ms) on {check_run.card_line()}")
-        require(not r["failures"], f"app: checker failed: {r['failures']}")
-        require(launches == {"lk_fb": 2 * APP_FRAMES, "orb": APP_FRAMES},
-                f"app: launches {launches} != 2 LK + 1 ORB per frame over {APP_FRAMES} frames")
-        require(n_ba == n_kf - 1 and n_kf >= 3, f"app: {n_ba} BA runs for {n_kf} keyframes")
+        print(f"[app] exported {APP_FRAMES} stereo frames 752x480 (distorted radtan) and "
+              f"{int(seq.imu_mask.sum())} IMU rows in {t_export:.1f} s; recipe slam "
+              f"{recipe['slam']}, backend {recipe['backend']}, imu_file "
+              f"{recipe['folder'].get('imu_file')}")
+        for run, extra in (("app_no_imu", ("--no-imu",)), ("app", ())):
+            with captured_systems() as created:
+                launches[run], r, n_kf, n_ba, text = run_app(run, opts_path, out, dev, extra)
+            exp = r.get("exp", {})
+            print(f"[{run}] checker: ATE {r.get('ate_mm', float('nan')):.1f} mm (bound "
+                  f"{exp.get('ate_bound_mm')}), RPE {r.get('rpe_mm', float('nan')):.1f} mm "
+                  f"(bound {exp.get('rpe_bound_mm')}), mean tracked "
+                  f"{r.get('mean_tracked', 0):.1f} (min {exp.get('min_tracked_mean')}), "
+                  f"problem-frame share {r.get('problem_fraction', 1):.3f} (max "
+                  f"{exp.get('max_problem_frame_fraction')})")
+            require(not r["failures"], f"{run}: checker failed: {r['failures']}")
+            require(launches[run] == {"lk_fb": 2 * APP_FRAMES, "orb": APP_FRAMES},
+                    f"{run}: launches {launches[run]} != 2 LK + 1 ORB per frame over "
+                    f"{APP_FRAMES} frames")
+            require(n_ba == n_kf - 1 and n_kf >= 3, f"{run}: {n_ba} BA runs for {n_kf} keyframes")
+            require(("IMU stream found" in text) == (run == "app"),
+                    f"{run}: the VIO branch was {'off' if run == 'app' else 'on'}")
+        vio = created[-1].state.vio
+        g_err, v_err = vio_errors(vio, seq, rectifying_rotation(rig_raw))
+        print(f"[app] IMU run: gravity ok {bool(vio.gravity_ok)} with "
+              f"{int(vio.grav_valid.sum())} samples, |g - g_true| {g_err:.4f} m/s^2 (bound 0.5), "
+              f"last |v - v_gt| {v_err:.4f} m/s, in the SLAM world")
+        require(bool(vio.gravity_ok) and g_err < 0.5, f"app: gravity error {g_err:.3f}")
 
         opts = load_options(str(opts_path))
         maps = compute_rectify_maps(rig_raw, models)
@@ -979,7 +1075,7 @@ def phase_app(dev):
         ck = Path(tmp) / "system.npz"
         s = create_system(opts.slam, opts.backend, maps.rig_rectified, (480, 752), device=dev)
         for f in islice(FolderReader(str(root)).frames_prefetch(), APP_CKPT_FRAME):
-            process_frame(s, *prep(f))
+            process_frame(s, *prep(f), imu=app.upload_imu(f, dev))
         checkpoint.save_system(str(ck), s)
         s2 = checkpoint.load_system(str(ck), opts.slam, opts.backend, maps.rig_rectified,
                                     (480, 752), device=dev)
@@ -998,14 +1094,159 @@ def phase_app(dev):
         same &= (all(np.array_equal(getattr(a, k), getattr(b, k))
                      for k in ("xyz", "desc", "color", "dormant", "_slot_row", "_slot_gen"))
                  and a._row_key == b._row_key and a.reload_keys == b.reload_keys)
+        n_vio = sum(n.startswith("['state'].vio.") for n, _ in la)
+        vio = s.state.vio
         print(f"[app] checkpoint after frame {APP_CKPT_FRAME}: {len(la)} tensors and numbers "
-              f"of state, keyframe DB ({s.n_keyframes} keyframes), BoW DB, vocabulary and "
-              f"telemetry queue ({len(s._tel_queue)}), {len(s.edge_i)} edges, archive "
-              f"{len(a)} rows: {'bit-identical' if same else 'DIFFERENT'} after load_system "
-              f"({ck.stat().st_size / 2 ** 20:.1f} MiB)")
-        require(same, "app: checkpoint round trip on the card is not bit-identical")
+              f"of state ({n_vio} of its VioState: {int(vio.grav_valid.sum())} gravity samples, "
+              f"history {int(vio.hist_n)}), keyframe DB ({s.n_keyframes} keyframes), BoW DB, "
+              f"vocabulary and telemetry queue ({len(s._tel_queue)}), {len(s.edge_i)} edges, "
+              f"archive {len(a)} rows: {'bit-identical' if same else 'DIFFERENT'} after "
+              f"load_system ({ck.stat().st_size / 2 ** 20:.1f} MiB)")
+        require(same and n_vio == 13, "app: checkpoint round trip on the card is not "
+                                      "bit-identical or lacks the VioState")
     print(f"[app] phase {time.perf_counter() - t0:.1f} s")
     return launches, lk_err
+
+
+def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
+    """What the VIO branch adds to one ``slam_step``: a system of the options
+    file runs frames 0..k-1 of its folder as the app does (rectified, with
+    IMU); then frame k, rectified, is stepped from that state with its IMU
+    slice and without: device kernels and copies and their busy ms
+    (``torch.profiler``, one call each after a warm call), and host ms
+    (perf_counter around the call and a synchronise, ``pairs`` alternating
+    pairs, medians). Returns {name: (count, busy ms, ms)}."""
+    from itertools import islice
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zenslam_tpu_torch import app
+    from zenslam_tpu_torch.config import load_options
+    from zenslam_tpu_torch.io.calibration import compute_rectify_maps, load_kalibr_yaml
+    from zenslam_tpu_torch.io.dataset import FolderReader
+    from zenslam_tpu_torch.ops.image import remap
+    from zenslam_tpu_torch.pipeline.step import slam_step
+    from zenslam_tpu_torch.pipeline.system import create_system, process_frame
+
+    opts = load_options(str(opts_path))
+    maps = compute_rectify_maps(*load_kalibr_yaml(opts.folder.calibration_file, device=dev))
+    mx = [torch.from_numpy(m).to(dev) for m in maps[:4]]
+
+    def prep(f):
+        return (remap(app.upload(f.left, dev), mx[0], mx[1]),
+                remap(app.upload(f.right, dev), mx[2], mx[3]), app.upload_imu(f, dev))
+
+    frames = islice(FolderReader(opts.folder.root).frames(), k + 1)
+    system = None
+    for i, f in enumerate(frames):
+        il, ir, imu = prep(f)
+        if i == k:
+            break
+        if system is None:
+            system = create_system(opts.slam, opts.backend, maps.rig_rectified,
+                                   tuple(il.shape), device=dev)
+        process_frame(system, il, ir, imu=imu)
+    require(int(imu[3].sum()) > 0, "fulldress: the timed frame has no IMU samples")
+    imus = {"imu": imu, "no_imu": None}
+
+    def step(name):
+        return slam_step(system.cfg, system.rig, system.state, il, ir, imu=imus[name])
+
+    out, ms = {}, {name: [] for name in imus}
+    for name in imus:
+        step(name)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(name)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[name] = (len(dev_events), sum(e.time_range.elapsed_us() for e in dev_events) / 1e3)
+    for i in range(pairs):
+        for name in (("imu", "no_imu") if i % 2 == 0 else ("no_imu", "imu")):
+            t0 = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (*out[name], float(np.median(ms[name]))) for name in imus}
+
+
+def phase_fulldress(dev):
+    """e2e_fulldress.py's default dataset through the port's app with the
+    IMU stream and pose fusion, and again ``--no-imu`` (see the module
+    docstring). Returns the IMU run's launches."""
+    import tempfile
+
+    import yaml
+
+    from zenslam_tpu_torch.io.synthetic import (
+        distort_sequence, export_dataset, make_sequence, write_kalibr_yaml)
+
+    t0 = time.perf_counter()
+    seq = make_sequence(np.random.default_rng(11), n_frames=FULLDRESS_FRAMES, width=1024,
+                        height=1024, motion="arc", speed=0.5, with_imu=True,
+                        device_render=True, device=dev)
+    raw = distort_sequence(seq, FULLDRESS_DIST)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "fulldress"
+        export_dataset(raw, str(root))
+        write_kalibr_yaml(raw, FULLDRESS_DIST, str(root / "camchain.yaml"))
+        print(f"[fulldress] rendered, distorted and exported {FULLDRESS_FRAMES} stereo frames "
+              f"1024x1024 with IMU in {time.perf_counter() - t0:.1f} s")
+        runs = {}
+        with captured_systems() as created:
+            for run, extra in (("fulldress", ()), ("fulldress_no_imu", ("--no-imu",))):
+                out = Path(tmp) / run
+                opts_path = Path(tmp) / f"{run}.yaml"
+                opts_path.write_text(yaml.safe_dump({
+                    "folder": {"root": str(root), "output": str(out),
+                               "calibration_file": str(root / "camchain.yaml"),
+                               "groundtruth_file": str(root / "groundtruth.csv")},
+                    "slam": {"use_pose_fusion": True},
+                    "backend": {"ba_every_kf": True, "enable_loop_closure": True}}))
+                with implicit_syncs() as records:
+                    launches, r, n_kf, n_ba, _ = run_app(run, opts_path, out, dev, extra)
+                with open(out / "frame_data.csv", newline="") as f:
+                    rows = list(csv.DictReader(f))
+                runs[run] = (launches, r, records, rows, created[-1])
+        launches, r, records, rows, system = runs["fulldress"]
+        ok = np.array([row["pose_ok"] == "True" for row in rows])
+        inertial = sum(row["pose_method"] == "4" and row["pose_ok"] == "True" for row in rows)
+        vio = system.state.vio
+        g_err, v_err = vio_errors(vio, seq, rectifying_rotation(seq.rig))
+        sites = sync_sites(records)
+        in_vio = sync_sites([w for w in records if "/imu/" in w.filename
+                             or w.filename.endswith("estimation/fusion.py")])
+        print(f"[fulldress] ATE {r.get('ate_mm', float('nan')):.1f} mm (bound 100), RPE "
+              f"{r.get('rpe_mm', float('nan')):.1f} mm; pose_ok {ok[1:].mean():.3f}; gravity "
+              f"ok {bool(vio.gravity_ok)} with {int(vio.grav_valid.sum())} samples, "
+              f"|g - g_true| {g_err:.4f} m/s^2; last |v - v_gt| {v_err:.4f} m/s; inertial "
+              f"candidate won the fusion on {inertial} of {len(rows)} frames")
+        steady = {k: v[1].get("steady_ms", float("nan")) for k, v in runs.items()}
+        print(f"[fulldress] steady ms/frame with IMU {steady['fulldress']:.2f}, without "
+              f"{steady['fulldress_no_imu']:.2f}")
+        n = sum(sites.values())
+        print(f"[fulldress] implicit synchronises in the IMU run: {n} ({n / len(rows):.3f} per "
+              f"frame); by line: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common(16)))
+        print(f"[fulldress] of them in imu/ or estimation/fusion.py: {dict(in_vio)}")
+        k = FULLDRESS_FRAMES // 2
+        cost = vio_branch_cost(Path(tmp) / "fulldress.yaml", k, dev)
+        (k_imu, busy_imu, ms_imu), (k_plain, busy_plain, ms_plain) = cost["imu"], cost["no_imu"]
+        print(f"[fulldress] one slam_step on frame {k} from the state before it, with IMU / "
+              f"without: device "
+              f"kernels and copies {k_imu} / {k_plain} (torch.profiler; the VIO branch adds "
+              f"{k_imu - k_plain}), device busy {busy_imu:.3f} / {busy_plain:.3f} ms, host "
+              f"{ms_imu:.2f} / {ms_plain:.2f} ms (median of 10 alternating pairs; the VIO "
+              f"branch {ms_imu - ms_plain:.2f} ms)")
+        require(r.get("ate_mm", float("inf")) < 100.0, f"fulldress: ATE {r.get('ate_mm')} mm "
+                                                       ">= 100 mm")
+        require(bool(vio.gravity_ok) and g_err < 0.5, f"fulldress: gravity error {g_err:.3f}")
+        require(not in_vio, f"fulldress: implicit synchronises in the VIO modules {in_vio}")
+        for run, (lc, *_rest) in runs.items():
+            require(lc == {"lk_fb": 2 * FULLDRESS_FRAMES, "orb": FULLDRESS_FRAMES},
+                    f"{run}: launches {lc} != 2 LK + 1 ORB per frame")
+    print(f"[fulldress] phase {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_kidnap(dev):
@@ -1099,7 +1340,9 @@ def main() -> int:
         paths = {"slice": phase_slice(seq, dev), "system": phase_system(seq, dev),
                  "loop": phase_loop(dev)}
         paths["kidnap"] = phase_kidnap(dev)
-        paths["app"], app_lk_err = phase_app(dev)
+        app_paths, app_lk_err = phase_app(dev)
+        paths.update(app_paths)
+        paths["fulldress"] = phase_fulldress(dev)
         lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

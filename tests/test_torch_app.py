@@ -1,12 +1,14 @@
 """The port's application (python -m zenslam_tpu_torch.app) against the
 reference's (python -m zenslam_tpu.app) on the CPU, end to end.
 
-One 384x288 strafe sequence is rendered, lens-distorted (radtan) and
-exported as an EuRoC-layout folder with a Kalibr camchain, once by each
-package's writers (the two folders agree: camchain and groundtruth text
-identical, images within one 8-bit level on >= 99.9% of pixels, the rest
-from the remap's last bit). Both apps run the recipe's path on the
-reference's folder, ``--no-imu``, with rectification and CLAHE on:
+One 384x288 strafe sequence with IMU is rendered, lens-distorted (radtan)
+and exported as an EuRoC-layout folder with a Kalibr camchain and
+``imu0/data.csv``, once by each package's writers (the two folders agree:
+camchain, groundtruth and IMU text identical, images within one 8-bit level
+on >= 99.9% of pixels, the rest from the remap's last bit). Both apps run
+the recipe's path on the reference's folder with rectification and CLAHE
+on, ``--no-imu`` (tests/test_torch_app_imu.py runs them with the IMU
+stream):
 
 - same number of trajectory rows and keyframes, and ATE within 2 mm;
 - the same telemetry columns and the same effective options, with the
@@ -14,17 +16,24 @@ reference's folder, ``--no-imu``, with rectification and CLAHE on:
 - the port's checker (zenslam_tpu_torch.eval.check_run) passes on the
   port's run and fails on a corrupted trajectory.
 
+The reference's run goes in a subprocess of its own, started as soon as
+its folder is written, while the port's runs here: the reference's time is
+almost all XLA compiles.
+
 The size: at 256x192 both packages track this sequence with frame-to-frame
 pose noise far above 2 mm (the same in both), so two free runs with
 different random draws cannot agree to 2 mm there; at 384x288 both do.
 
-Also the guards: an IMU stream without --no-imu (item 11), --viz (item 18),
-keylines (item 13), ba_solver dist (item 17), and no CUDA without --device.
+Also the guards: --viz (item 18), keylines (item 13), ba_solver dist
+(item 17), and no CUDA without --device.
 """
 
+import contextlib
 import csv
 import json
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -47,20 +56,60 @@ IMU_NOISE = {"gyroscope_noise_density": 1.2e-4, "accelerometer_noise_density": 2
              "gyroscope_random_walk": 2.0e-5, "accelerometer_random_walk": 3.0e-4}
 
 
-@pytest.fixture(scope="module")
-def datasets(tmp_path_factory):
-    root = tmp_path_factory.mktemp("app")
+def export_reference(root: Path) -> Path:
+    """The reference's folder, the one both apps run on, under ``root``."""
     jseq = jsyn.distort_sequence(jsyn.make_sequence(
         np.random.default_rng(5), n_frames=N_FRAMES, width=W, height=H, motion="strafe",
-        speed=0.5), DIST)
+        speed=0.5, with_imu=True), DIST)
     jsyn.export_dataset(jseq, str(root / "ref"))
     jsyn.write_kalibr_yaml(jseq, DIST, str(root / "ref" / "camchain.yaml"))
+    (root / "ref" / "imu_config.yaml").write_text(yaml.safe_dump(IMU_NOISE))
+    return root
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return export_reference(tmp_path_factory.mktemp("app"))
+
+
+@contextlib.contextmanager
+def reference_app(root: Path, out: str, *extra):
+    """The reference app on its folder in a process of its own, under way
+    while the body runs; yields a function that waits for it and returns its
+    output folder."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    opts = _options(root, root / "ref", out)
+    with open(root / f"{out}.log", "w") as log:
+        p = subprocess.Popen([sys.executable, "-m", "zenslam_tpu.app", "--options-file", opts,
+                              "--no-scene", *extra], cwd=REPO, env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+
+    def wait() -> Path:
+        assert p.wait(timeout=600) == 0, (root / f"{out}.log").read_text()[-4000:]
+        return root / out
+
+    try:
+        yield wait
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def reference_run(root):
+    with reference_app(root, "out_ref", "--no-imu") as wait:
+        yield wait
+
+
+@pytest.fixture(scope="module")
+def datasets(root, reference_run):
+    """Both writers' folders; the reference's run is under way meanwhile."""
     pseq = psyn.distort_sequence(psyn.make_sequence(
         np.random.default_rng(5), n_frames=N_FRAMES, width=W, height=H, motion="strafe",
-        speed=0.5, device="cpu"), DIST)
+        speed=0.5, with_imu=True, device="cpu"), DIST)
     psyn.export_dataset(pseq, str(root / "port"))
     psyn.write_kalibr_yaml(pseq, DIST, str(root / "port" / "camchain.yaml"))
-    (root / "ref" / "imu_config.yaml").write_text(yaml.safe_dump(IMU_NOISE))
     return root
 
 
@@ -84,7 +133,7 @@ def test_writers_agree(datasets):
     from zenslam_tpu_torch.native.loader import decode_png_gray
 
     ref, port = datasets / "ref", datasets / "port"
-    for f in ("camchain.yaml", "groundtruth.csv"):
+    for f in ("camchain.yaml", "groundtruth.csv", "imu0/data.csv"):
         assert (port / f).read_text() == (ref / f).read_text(), f
     for cam in ("cam0/data", "cam1/data"):
         names = sorted(os.listdir(ref / cam))
@@ -96,16 +145,13 @@ def test_writers_agree(datasets):
 
 
 @pytest.fixture(scope="module")
-def runs(datasets):
-    from zenslam_tpu.app import main as ref_main
+def runs(datasets, reference_run):
     from zenslam_tpu_torch.app import main as port_main
 
     data = datasets / "ref"
-    assert ref_main(["--options-file", _options(datasets, data, "out_ref"), "--no-imu",
-                     "--no-scene"]) == 0
     assert port_main(["--options-file", _options(datasets, data, "out_port"), "--no-imu",
                       "--device", "cpu"]) == 0
-    return datasets / "out_ref", datasets / "out_port", data
+    return reference_run(), datasets / "out_port", data
 
 
 def _rows(out: Path):
@@ -165,7 +211,6 @@ def test_checker_passes_and_fails(runs, tmp_path):
 
 
 @pytest.mark.parametrize("extra,folder,slam,backend,match", [
-    ([], dict(imu_file="groundtruth.csv"), {}, {}, "item 11.*--no-imu"),
     (["--viz"], {}, {}, {}, "item 18"),
     (["--no-imu"], {}, dict(use_keylines=True), {}, "item 13"),
     (["--no-imu"], {}, {}, dict(ba_solver="dist"), "item 17"),

@@ -3,7 +3,9 @@ state round trip is bit-exact, a structure mismatch raises, and a system
 saved after frame 6 of 12, loaded and run on reproduces the uninterrupted
 run bit for bit (with lagged telemetry, so the save also carries queued
 frames and resolves a deferred spill; the reference's test_checkpoint
-workload: the 12-frame 320x240 strafe, seed 5)."""
+workload: the 12-frame 320x240 strafe, seed 5, without and with its IMU
+stream; with it the save also carries the VioState: gravity ring, 3-pose
+history, velocity)."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ CFG = SlamConfig(max_keypoints=256, max_landmarks=2048, pnp_iters=128, rigid_ite
 @pytest.fixture(scope="module")
 def seq():
     return make_sequence(np.random.default_rng(5), n_frames=12, width=320, height=240,
-                         motion="strafe", device="cpu")
+                         motion="strafe", with_imu=True, device="cpu")
 
 
 def _leaves(tree):
@@ -71,18 +73,22 @@ def _system_tree(s):
     return {"state": s.state, "kf_db": s.kf_db, "bow_db": s.bow_db, "vocab": s.vocab}
 
 
-@pytest.mark.parametrize("lag", [2])
-def test_resume_reproduces_uninterrupted_run(seq, tmp_path, lag):
+@pytest.mark.parametrize("lag,with_imu", [(2, False), (2, True)], ids=["2", "2-imu"])
+def test_resume_reproduces_uninterrupted_run(seq, tmp_path, lag, with_imu):
+    """Vision only (the app's ``--no-imu``), and with the IMU stream, so the
+    saved state carries a live VioState."""
+    imu = (seq.gyro, seq.accel, seq.imu_dts, seq.imu_mask) if with_imu else None
     bcfg = BackendConfig(max_keyframes=8, ba_window=4, ba_iterations=4, enable_loop_closure=True,
                          bow_levels=1, bow_words=32, telemetry_lag=lag)
     shape = tuple(seq.left[0].shape)
     sys_a = create_system(CFG, bcfg, seq.rig, shape, device="cpu")
-    tel_a, _ = run_system(sys_a, seq.left, seq.right)
+    tel_a, _ = run_system(sys_a, seq.left, seq.right, imu=imu)
 
     sys_b = create_system(CFG, bcfg, seq.rig, shape, device="cpu")
     from zenslam_tpu_torch.pipeline.system import process_frame
 
-    tels_b = [process_frame(sys_b, seq.left[t], seq.right[t])[0] for t in range(6)]
+    tels_b = [process_frame(sys_b, seq.left[t], seq.right[t],
+                            imu=imu and tuple(x[t] for x in imu))[0] for t in range(6)]
     p = str(tmp_path / "sys.npz")
     save_system(p, sys_b)
     sys_c = load_system(p, CFG, bcfg, seq.rig, shape, device="cpu")
@@ -96,9 +102,13 @@ def test_resume_reproduces_uninterrupted_run(seq, tmp_path, lag):
     assert np.array_equal(sys_c.archive.xyz, sys_b.archive.xyz)
     assert sys_c.archive._row_key == sys_b.archive._row_key
 
-    tel_c, _ = run_system(sys_c, seq.left[6:], seq.right[6:])
+    tel_c, _ = run_system(sys_c, seq.left[6:], seq.right[6:], imu=imu and tuple(x[6:] for x in imu))
     _assert_same(_system_tree(sys_a), _system_tree(sys_c))
     assert sys_c.n_ba_runs == sys_a.n_ba_runs and sys_c.n_keyframes == sys_a.n_keyframes
     n_b = sum(t is not None for t in tels_b)
     for f in ("R_cw", "t_cw", "n_tracked", "is_keyframe"):
         assert np.array_equal(getattr(tel_a, f)[n_b:], getattr(tel_c, f)), f
+    if with_imu:
+        assert int(sys_b.state.vio.hist_n) == 3 and int(sys_b.state.vio.grav_valid.sum()) > 0
+    else:
+        assert int(sys_b.state.vio.hist_n) == 0

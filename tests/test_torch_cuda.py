@@ -386,3 +386,84 @@ def test_run_system_with_lag_on_card(dev):
     runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
     assert all(r[1] <= 1.05 * r[0] and r[2] == 0 for r in runs)
     assert tel.pose_ok[1:].all() and np.isfinite(tel.t_cw).all()
+
+
+def _imu_batch(seed, S=64, n_valid=10):
+    rng = np.random.default_rng(seed)
+    gyro = rng.normal(0, 1.0, (S, 3)).astype(np.float32)
+    accel = (rng.normal(0, 2.0, (S, 3)) + [0, 9.81, 0]).astype(np.float32)
+    dts = (0.005 * rng.uniform(0.8, 1.2, S)).astype(np.float32)
+    mask = np.arange(S) < n_valid
+    gyro[n_valid:] = 999.0
+    return [torch.from_numpy(x) for x in (gyro, accel, dts, mask,
+                                          rng.normal(0, 0.02, 3).astype(np.float32),
+                                          rng.normal(0, 0.1, 3).astype(np.float32))]
+
+
+@pytest.mark.cuda
+def test_preintegrate_on_card_matches_cpu_without_syncs(dev):
+    """The hoisted preintegration on the card: every field within 1e-5 of
+    the CPU's (cov 1e-5 of its largest entry), with no synchronise (the
+    sync debug mode raises on one)."""
+    from zenslam_tpu_torch.imu.preintegration import preintegrate
+
+    g, a, d, m, bg, ba_ = _imu_batch(0)
+    cpu = preintegrate(g, a, d, m, bias_gyro=bg, bias_accel=ba_)
+    args = [x.to(dev) for x in (g, a, d, m, bg, ba_)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = preintegrate(*args[:4], bias_gyro=args[4], bias_accel=args[5])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for f, x, y in zip(cpu._fields, card, cpu):
+        scale = float(y.abs().max()) if f == "cov" else 1.0
+        assert float((x.cpu() - y).abs().max()) <= 1e-5 * scale, f
+
+
+@pytest.mark.cuda
+def test_fuse_poses_and_vio_update_on_card_match_cpu_without_syncs(dev):
+    """fuse_poses, the gravity ring and the step's VIO update on the card:
+    within 1e-5 of the CPU, with no synchronise."""
+    from zenslam_tpu_torch.estimation.fusion import PoseCandidate, fuse_poses
+    from zenslam_tpu_torch.imu.preintegration import preintegrate
+    from zenslam_tpu_torch.io.synthetic import default_rig
+    from zenslam_tpu_torch.pipeline.state import init_vio
+    from zenslam_tpu_torch.pipeline.step import _vio_update
+
+    rng = np.random.default_rng(3)
+    M = 5
+    cands = PoseCandidate(
+        R=so3_exp(torch.from_numpy(rng.normal(0, 0.1, (M, 3)).astype(np.float32))),
+        t=torch.from_numpy(rng.normal(0, 0.1, (M, 3)).astype(np.float32)),
+        inlier_ratio=torch.from_numpy(rng.random(M).astype(np.float32)),
+        mean_err=torch.from_numpy(rng.random(M).astype(np.float32)),
+        n_inliers=torch.from_numpy(rng.integers(0, 100, M)),
+        is_line=torch.zeros(M, dtype=torch.bool), valid=torch.tensor([1, 1, 0, 1, 1]).bool())
+    scales = torch.tensor([3.0, 3.0, 0.1, 3.0, 0.1])
+    g, a, d, m, _, _ = _imu_batch(1)
+    it = preintegrate(g, a, d, m)
+    rig = default_rig(64, 64, device="cpu")
+    R0 = so3_exp(torch.tensor([0.0, 0.1, 0.0]))
+    vio = init_vio()
+    for k in range(3):   # fill the history on the CPU
+        vio = _vio_update(rig, vio, it, a, m, R0, torch.zeros(3), R0,
+                          torch.tensor([0.01 * k, 0.0, 0.0]), torch.tensor(True))
+    cpu = (fuse_poses(cands, err_scale=scales),
+           _vio_update(rig, vio, it, a, m, R0, torch.zeros(3), R0,
+                       torch.tensor([0.05, 0.0, 0.0]), torch.tensor(True)))
+    on = (PoseCandidate(*(x.to(dev) for x in cands)), scales.to(dev),
+          type(it)(*(x.to(dev) for x in it)), type(vio)(*(x.to(dev) for x in vio)),
+          default_rig(64, 64, device=dev), a.to(dev), m.to(dev), R0.to(dev))
+    z, t1, ok = (torch.zeros(3, device=dev), torch.tensor([0.05, 0.0, 0.0], device=dev),
+                 torch.ones((), dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = (fuse_poses(on[0], err_scale=on[1]),
+                _vio_update(on[4], on[3], on[2], on[5], on[6], on[7], z, on[7], t1, ok))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, y in zip(card[0] + tuple(card[1]), cpu[0] + tuple(cpu[1])):
+        assert x.dtype == y.dtype
+        assert float((x.cpu().double() - y.double()).abs().max()) <= 1e-5

@@ -149,8 +149,3 @@ def test_cascade(scene):
     np.testing.assert_array_equal(p.inliers0.numpy(), np.asarray(j.inliers0))
     assert (int(p.method), int(p.n_inliers), bool(p.ok)) == \
         (int(j.method), int(j.n_inliers), bool(j.ok))
-
-
-def test_fusion_not_ported(scene):
-    with pytest.raises(NotImplementedError, match="fusion"):
-        PCas.estimate_pose_cascade(None, None, *([None] * 11), fuse=True)

@@ -167,18 +167,10 @@ def test_convert_round_trip(reference_run):
 
 @pytest.mark.parametrize("field,value", [
     ("use_keylines", True), ("descriptor", "sift"),
-    ("detector", "harris"), ("describe_refresh", 4), ("use_pose_fusion", True)])
+    ("detector", "harris"), ("describe_refresh", 4)])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_state(SlamConfig(**{field: value}), (64, 64), device="cpu")
-
-
-def test_imu_input_raises(seq, prig):
-    cfg = SlamConfig(**CFG)
-    state = init_state(cfg, (H, W), device="cpu")
-    with pytest.raises(NotImplementedError, match="IMU"):
-        slam_step(cfg, prig, state, _img(seq.left[0]), _img(seq.right[0]),
-                  imu=(torch.zeros(10, 3),) * 2 + (torch.zeros(10), torch.ones(10, dtype=torch.bool)))
 
 
 def test_init_state_needs_cuda_unless_told(monkeypatch):

@@ -298,18 +298,6 @@ def test_unported_settings_raise(bcfg, cfg, match):
                               device="cpu")
 
 
-def test_imu_raises(small):
-    seq, cfg = small
-    s = psystem.create_system(cfg, psystem.BackendConfig(), seq.rig, (256, 320), device="cpu")
-    imu = (np.zeros((12, 10, 3), np.float32),) * 2 + (np.zeros((12, 10), np.float32),
-                                                      np.ones((12, 10), bool))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        psystem.run_system(s, seq.left, seq.right, imu=imu)
-    with pytest.raises(NotImplementedError, match="IMU"):
-        psystem.process_frame(s, torch.from_numpy(seq.left[0]), torch.from_numpy(seq.right[0]),
-                              imu=tuple(torch.from_numpy(x[0]) for x in imu))
-
-
 def test_create_system_needs_cuda_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rig = port_synthetic.default_rig(64, 64, device="cpu")
@@ -336,7 +324,10 @@ def test_no_module_of_the_port_imports_jax():
     assert {"zenslam_tpu_torch.pipeline.system", "zenslam_tpu_torch.backend.ba",
             "zenslam_tpu_torch.pipeline.demo", "zenslam_tpu_torch.app",
             "zenslam_tpu_torch.io.dataset", "zenslam_tpu_torch.io.checkpoint",
-            "zenslam_tpu_torch.native.loader"} <= set(names)
+            "zenslam_tpu_torch.native.loader", "zenslam_tpu_torch.imu.preintegration",
+            "zenslam_tpu_torch.imu.continuous", "zenslam_tpu_torch.imu.gravity",
+            "zenslam_tpu_torch.imu.predictors", "zenslam_tpu_torch.estimation.fusion"
+            } <= set(names)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -1,7 +1,8 @@
 """zenslam_tpu_torch application entry — counterpart of ``zenslam_tpu/app.py``.
 
+    python -m zenslam_tpu_torch.app --options-file options.yaml
+    python -m zenslam_tpu_torch.app --options-file options.yaml --device cpu
     python -m zenslam_tpu_torch.app --options-file options.yaml --no-imu
-    python -m zenslam_tpu_torch.app --options-file options.yaml --no-imu --device cpu
     python -m zenslam_tpu_torch.app --version / --help
 
 Runs the full keyframe SLAM system over the dataset the options name:
@@ -10,12 +11,13 @@ on the device -> rectification (``remap``) when a Kalibr camchain is given
 -> ``process_frame`` (the per-frame step and the keyframe back end, with
 lagged telemetry) -> telemetry CSV, ``trajectory.csv``, the final pose,
 ATE/RPE against groundtruth, the scene export, and the effective options
-written back. Runs on CUDA unless ``--device cpu`` is given; with no CUDA
-device and no ``--device`` it raises.
+written back. When the folder carries an IMU stream (``folder.imu_file``)
+and ``--no-imu`` is absent, each frame's padded IMU slice goes up with it
+(one pinned buffer) and the VIO branch runs. Runs on CUDA unless ``--device
+cpu`` is given; with no CUDA device and no ``--device`` it raises.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md item:
-an IMU stream without ``--no-imu`` (item 11), ``--viz`` (item 18) and
-``backend.ba_solver: dist`` (item 17).
+``--viz`` (item 18) and ``backend.ba_solver: dist`` (item 17).
 """
 
 from __future__ import annotations
@@ -83,11 +85,6 @@ def main(argv=None):
         root=opts.folder.root, left_dir=opts.folder.left, right_dir=opts.folder.right,
         imu_file=opts.folder.imu_file, timescale=opts.folder.timescale,
         skip_frames=opts.folder.skip_frames, take_frames=opts.folder.take_frames)
-    if reader.has_imu() and not args.no_imu:
-        raise NotImplementedError(
-            f"the dataset carries an IMU stream ({opts.folder.imu_file}) and the VIO branch "
-            "is not ported to zenslam_tpu_torch yet (ROADMAP.md Queue 1 item 11); pass "
-            "--no-imu to run vision-only")
 
     os.makedirs(opts.folder.output, exist_ok=True)
     maps = None
@@ -117,6 +114,9 @@ def main(argv=None):
     traj_f = open(os.path.join(opts.folder.output, "trajectory.csv"), "w")
     traj_f.write("# timestamp, px, py, pz (camera center, world frame)\n")
 
+    has_imu = reader.has_imu() and not args.no_imu
+    if has_imu:
+        print("IMU stream found — VIO branch enabled")
     system = None
     est_pos, gt_pos, times = [], [], []
     meta = []   # per-frame (timestamp, wait_ms): lagged telemetry is realigned by index
@@ -143,6 +143,7 @@ def main(argv=None):
             frame, wait_ms = frame
             il = upload(frame.left, dev)
             ir = upload(frame.right, dev)
+            imu = upload_imu(frame, dev) if has_imu else None
             if maps is not None:
                 if mx_l is None:
                     mx_l, my_l, mx_r, my_r = (torch.from_numpy(m).to(dev) for m in (
@@ -158,7 +159,7 @@ def main(argv=None):
                                        device=dev)
             meta.append((frame.timestamp, wait_ms))
             t0 = time.time()
-            tel, info = process_frame(system, il, ir)
+            tel, info = process_frame(system, il, ir, imu=imu)
             dt_ms = (time.time() - t0) * 1000 + wait_ms
             times.append(dt_ms)
             n += 1
@@ -217,6 +218,22 @@ def upload(img: np.ndarray, device):
     if pin:
         u8 = u8.pin_memory()
     return u8.to(device, non_blocking=pin).to(torch.float32) * (1.0 / 255.0)
+
+
+def upload_imu(frame, device):
+    """A frame's padded IMU slice as the step's (gyro, accel, dts, mask) on
+    ``device``: the four arrays packed into one (S, 8) float32 host buffer
+    (pinned on CUDA), one copy, split on the device."""
+    import torch
+
+    buf = np.concatenate([frame.imu_gyro, frame.imu_accel, frame.imu_dt[:, None],
+                          frame.imu_mask[:, None]], axis=1).astype(np.float32)
+    t = torch.from_numpy(buf)
+    pin = torch.device(device).type == "cuda"
+    if pin:
+        t = t.pin_memory()
+    t = t.to(device, non_blocking=pin)
+    return t[:, 0:3], t[:, 3:6], t[:, 6], t[:, 7] > 0.5
 
 
 def _timed(frames):

@@ -10,7 +10,8 @@ numpy array (done by the caller; nothing here imports JAX). Conversions:
 - the reference pads ragged levels to TPU tile alignment: each level is
   cropped to its true size ``[:h, :w]``;
 - the JAX PRNG key has no counterpart: the state gets ``seed`` and its
-  frame counter as ``rng_step``. Keyline and IMU tables are dropped.
+  frame counter as ``rng_step``. Keyline tables are dropped; the VIO state
+  (gravity ring, 3-pose history, velocity) carries over both ways.
 
 The back end's tables (``KeyframeDB``, ``BowDatabase``, ``Vocabulary``,
 ``PoseGraph``, ``BAProblem``) convert field by field (``table_from_numpy``,
@@ -33,7 +34,7 @@ from zenslam_tpu_torch.backend.map_archive import LandmarkArchive
 from zenslam_tpu_torch.geometry.camera import PinholeCamera, StereoRig
 from zenslam_tpu_torch.ops.lk import ragged_level_sizes
 from zenslam_tpu_torch.pipeline.state import (
-    FeatureTable, LandmarkMap, MotionModel, SlamConfig, SlamState)
+    FeatureTable, LandmarkMap, MotionModel, SlamConfig, SlamState, VioState, init_vio)
 from zenslam_tpu_torch.pipeline.system import (
     BackendConfig, HostCopy, KfSnap, SlamSystem)
 
@@ -97,7 +98,9 @@ def state_from_numpy(tree, device, image_shape=None, seed: int = 0,
         prev_pyr_l=tuple(tensor_from_numpy(np.asarray(p)[:h, :w], device, pyramid_dtype)
                          for p, (h, w) in zip(levels, sizes)),
         rng_seed=int(getattr(tree, "rng_seed", seed)),
-        rng_step=int(getattr(tree, "rng_step", np.asarray(tree.frame_idx))))
+        rng_step=int(getattr(tree, "rng_step", np.asarray(tree.frame_idx))),
+        vio=(_table(VioState, tree.vio, device) if getattr(tree, "vio", None) is not None
+             else init_vio(device=device)))
 
 
 def _np(x):

@@ -1,10 +1,12 @@
 """Pose estimation cascade: PnP cam0 → PnP cam1 → rigid 3D-3D → 2D-2D
 essential with metric scale → predicted pose — counterpart of
-``zenslam_tpu/estimation/cascade.py`` (priority pick; pose fusion is not
-ported yet).
+``zenslam_tpu/estimation/cascade.py``.
 
 All four estimators always run and a priority select picks the result, as in
-the reference. Randomness enters only as Gumbel noise (``CascadeNoise``).
+the reference; with ``fuse=True`` the successful methods are fused instead
+(``estimation/fusion.py``), and a given ``pred_sigma_p`` adds the inertial
+prediction as a fifth candidate. Randomness enters only as Gumbel noise
+(``CascadeNoise``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from zenslam_tpu_torch.estimation.epipolar import estimate_2d2d_scaled
+from zenslam_tpu_torch.estimation.fusion import PoseCandidate, fuse_poses, take
 from zenslam_tpu_torch.estimation.pnp import solve_pnp_ransac
 from zenslam_tpu_torch.estimation.ransac import gumbel
 from zenslam_tpu_torch.estimation.rigid import solve_rigid_ransac
@@ -62,16 +65,15 @@ def estimate_pose_cascade(noise: CascadeNoise, rig: StereoRig,
                           X0, uv0, valid0, X1, uv1, valid1,
                           src3d, dst3d, valid3d, R_pred, t_pred,
                           p2a=None, p2b=None, valid2=None, X2_prev_cam=None,
-                          has3d2=None, R_prev=None, t_prev=None,
+                          has3d2=None, R_prev=None, t_prev=None, pred_sigma_p=None,
                           pnp_threshold: float = 3.0, rigid_threshold: float = 0.05,
                           essential_threshold: float = 1.5, min_inliers: int = 4,
                           fuse: bool = False) -> PoseEstimate:
     """Left-camera pose T_cam0_world. Iteration counts come from the noise
-    shapes; ``p2a=None`` disables the essential fallback (method 3)."""
-    if fuse:
-        raise NotImplementedError(
-            "pose fusion (use_pose_fusion) is not ported yet: ROADMAP.md Queue 1, "
-            "estimation/fusion.py")
+    shapes; ``p2a=None`` disables the essential fallback (method 3).
+    ``pred_sigma_p``: 1-sigma position uncertainty (m) of the predicted pose
+    from the preintegration covariance; with ``fuse`` it makes the
+    prediction a candidate weighted on the 0.1 m scale."""
     R1p, t1p = se3_compose(rig.R_rl, rig.t_rl, R_pred, t_pred)
     n = max(X0.shape[0], X1.shape[0])
     rp = solve_pnp_ransac(
@@ -118,6 +120,46 @@ def estimate_pose_cascade(noise: CascadeNoise, rig: StereoRig,
                  n3.to(torch.int64), zero_i)
     mean_err = pick(rp["mean_err"][0], rp["mean_err"][1], r2["mean_err"], e3,
                     torch.full((), float("inf"), device=X0.device))
-    return PoseEstimate(R=R, t=t, ok=ok0 | ok1 | ok2 | ok3, n_inliers=n_inl,
+    ok = ok0 | ok1 | ok2 | ok3
+    if fuse:
+        # fuse the successful methods; a failed solver may emit NaN R/t, and
+        # 0 * NaN would poison the fused pose, so they carry the prediction
+        f32 = torch.float32
+        oks = torch.stack([ok0, ok1, ok2, ok3])
+        t_st = torch.where(oks[:, None], torch.stack([rp["t"][0], t1c0, t2c0, t3]), t_pred)
+        R_st = torch.where(oks[:, None, None], torch.stack([rp["R"][0], R1c0, R2c0, R3]), R_pred)
+        e_st = torch.stack([rp["mean_err"][0], rp["mean_err"][1], r2["mean_err"], e3]).to(f32)
+        n_st = torch.stack([rp["n_inliers"][0], rp["n_inliers"][1], r2["n_inliers"],
+                            n3.to(torch.int64)])
+        n_valid = torch.stack([valid0.sum(), valid1.sum(), valid3d.sum(),
+                               valid2.sum() if use_2d2d else torch.zeros_like(valid0.sum())])
+        ratios = (n_st / torch.clamp(n_valid, min=1)).to(f32)
+        # per-method error scales: 3 px for pixel residuals, 0.1 m for 3D-3D
+        # (built from fills: a scalar assignment into a CUDA tensor copies
+        # from the host and synchronises)
+        px = torch.full((2,), 3.0, dtype=f32, device=X0.device)
+        scales = torch.cat([px, torch.full_like(px[:1], 0.1), px[:1]])
+        if pred_sigma_p is not None:
+            # the inertial candidate: mean_err = sigma_p (m) on the 0.1 m
+            # scale, no inliers (it measured nothing visual)
+            sig = torch.as_tensor(pred_sigma_p, dtype=f32, device=X0.device).reshape(1)
+            t_st, R_st = torch.cat([t_st, t_pred[None]]), torch.cat([R_st, R_pred[None]])
+            e_st = torch.cat([e_st, sig])
+            n_st = torch.cat([n_st, torch.zeros_like(n_st[:1])])
+            ratios = torch.cat([ratios, torch.zeros_like(ratios[:1])])
+            oks = torch.cat([oks, torch.isfinite(sig)])
+            scales = torch.cat([scales, torch.full_like(scales[:1], 0.1)])
+        R_f, t_f, _, _, best = fuse_poses(
+            PoseCandidate(R=R_st, t=t_st, inlier_ratio=ratios, mean_err=e_st, n_inliers=n_st,
+                          is_line=torch.zeros_like(oks), valid=oks), err_scale=scales)
+        # telemetry follows the fusion winner (best == 4, the inertial
+        # candidate, reports as method 4)
+        R = torch.where(ok, so3_orthonormalize(R_f), R)
+        t = torch.where(ok, t_f, t)
+        method = torch.where(ok, best.to(torch.int32), method)
+        n_inl = torch.where(ok, take(n_st, best), n_inl)
+        mean_err = torch.where(ok, take(e_st, best), mean_err)
+    return PoseEstimate(R=R, t=t, ok=ok, n_inliers=n_inl,
                         mean_err=mean_err, method=method,
                         inliers0=rp["inliers"][0][:X0.shape[0]])
+

@@ -2,11 +2,11 @@
 ``zenslam_tpu/io/synthetic.py`` the port needs: the textured corridor world,
 the closed room of the loop workload, the host (numpy) renderer, a device
 (torch) renderer, the default rig, ``make_sequence`` for the 'strafe',
-'forward', 'arc' and 'orbit' motions with optional pixel noise (no IMU, no
-lines, no photometric effects), and the dataset writers: sequences rendered
-through a distorted camchain (``make_distorted_sequence``,
-``distort_sequence``), Kalibr YAML, PNG and EuRoC-layout folders
-(``export_dataset``).
+'forward', 'arc' and 'orbit' motions with optional pixel noise and body-frame
+IMU (``make_imu``; no lines, no photometric effects), and the dataset
+writers: sequences rendered through a distorted camchain
+(``make_distorted_sequence``, ``distort_sequence``), Kalibr YAML, PNG and
+EuRoC-layout folders with ``imu0/data.csv`` (``export_dataset``).
 
 The numpy parts are the reference's code as it stands, so the same
 generator state renders the same images in both packages.
@@ -203,11 +203,74 @@ class SyntheticSequence(NamedTuple):
     t_lw: np.ndarray        # (T, 3)
     timestamps: np.ndarray  # (T,)
     rig: StereoRig
+    # IMU (make_sequence(with_imu=True); body frame = left camera)
+    gyro: np.ndarray = None       # (T, S, 3) rad/s
+    accel: np.ndarray = None      # (T, S, 3) m/s² specific force
+    imu_dts: np.ndarray = None    # (T, S) seconds
+    imu_mask: np.ndarray = None   # (T, S) bool (frame 0 all False)
+    gravity_w: np.ndarray = None  # (3,) true gravity in the world frame
+
+
+def _np_so3_log(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> axis-angle vector (numpy, float64)."""
+    c = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    theta = np.arccos(c)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    s = 2.0 * np.sin(theta)
+    if theta < 1e-8:
+        return 0.5 * w
+    return (theta / s) * w
+
+
+def make_imu(pose_fn, timestamps: np.ndarray, samples_per_frame: int = 10,
+             gravity_w=(0.0, 9.81, 0.0), rng: np.random.Generator | None = None,
+             gyro_noise: float = 0.0, accel_noise: float = 0.0):
+    """Body-frame IMU of a continuous trajectory: pose_fn(t) -> (R_cw, t_cw)
+    world->cam in float64, body = left camera. Gyro and accel are numerical
+    derivatives at each sample's interval midpoint; the accelerometer
+    measures the specific force f_b = R_bw (a_w - g_w). Returns (gyro
+    (T,S,3), accel (T,S,3), dts (T,S), mask (T,S)), float32 but the bool
+    mask; frame 0 has no samples."""
+    g_w = np.asarray(gravity_w, np.float64)
+    T, S = len(timestamps), samples_per_frame
+    gyro = np.zeros((T, S, 3), np.float64)
+    accel = np.zeros((T, S, 3), np.float64)
+    dts = np.zeros((T, S), np.float64)
+    mask = np.zeros((T, S), bool)
+    eps = 1e-4
+
+    def body_pose(t):
+        R_cw, t_cw = pose_fn(t)
+        return R_cw.T, -R_cw.T @ t_cw
+
+    for k in range(1, T):
+        t0, t1 = timestamps[k - 1], timestamps[k]
+        h = (t1 - t0) / S
+        for j in range(S):
+            tm = t0 + (j + 0.5) * h
+            R0, _ = body_pose(tm - eps / 2)
+            R1, _ = body_pose(tm + eps / 2)
+            w_b = _np_so3_log(R0.T @ R1) / eps
+            _, pm = body_pose(tm)
+            _, pa = body_pose(tm - eps)
+            _, pb = body_pose(tm + eps)
+            a_w = (pb - 2.0 * pm + pa) / (eps * eps)
+            R_wb, _ = body_pose(tm)
+            gyro[k, j] = w_b
+            accel[k, j] = R_wb.T @ (a_w - g_w)
+            dts[k, j] = h
+            mask[k, j] = True
+    if rng is not None and (gyro_noise > 0 or accel_noise > 0):
+        gyro += rng.normal(0, gyro_noise, gyro.shape)
+        accel += rng.normal(0, accel_noise, accel.shape)
+    return (gyro.astype(np.float32), accel.astype(np.float32), dts.astype(np.float32), mask)
 
 
 def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512,
                   height: int = 384, motion: str = "strafe", dt: float = 0.05,
-                  speed: float = 0.4, device_render: bool = False, pixel_noise: float = 0.0,
+                  speed: float = 0.4, with_imu: bool = False,
+                  imu_samples_per_frame: int = 10, gravity_w=(0.0, 9.81, 0.0),
+                  device_render: bool = False, pixel_noise: float = 0.0,
                   orbit_radius: float = 1.5, orbit_revolutions: float = 1.0,
                   device=None) -> SyntheticSequence:
     """Render a stereo sequence with groundtruth. motion: 'strafe' (x
@@ -278,16 +341,23 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         rights.append(noisy(ri))
         Rs.append(R_cw.astype(np.float32))
         ts.append(t_cw.astype(np.float32))
+    imu = {}
+    if with_imu:
+        gyro, accel, imu_dts, imu_mask = make_imu(pose_fn, timestamps, imu_samples_per_frame,
+                                                  gravity_w)
+        imu = dict(gyro=gyro, accel=accel, imu_dts=imu_dts, imu_mask=imu_mask,
+                   gravity_w=np.asarray(gravity_w, np.float32))
     stack = torch.stack if device_render else np.stack
     return SyntheticSequence(left=stack(lefts), right=stack(rights), R_lw=np.stack(Rs),
-                             t_lw=np.stack(ts), timestamps=timestamps, rig=rig)
+                             t_lw=np.stack(ts), timestamps=timestamps, rig=rig, **imu)
 
 
 def distort_sequence(seq: SyntheticSequence, dist, model: str = "radtan") -> SyntheticSequence:
     """The raw (lens-distorted) version of a pinhole-rendered sequence:
-    RAW(p_d) = Ideal(K·undistort(K⁻¹·p_d)), remapped on the host (CPU
-    float32). Feeding it through the rectification path must give back the
-    ideal geometry."""
+    RAW(p_d) = Ideal(K·undistort(K⁻¹·p_d)), with the map computed on the
+    CPU in float32 and applied where the frames live (numpy frames on the
+    host, device-rendered tensors on their device). Feeding it through the
+    rectification path must give back the ideal geometry."""
     from zenslam_tpu_torch.geometry.camera import (
         undistort_points_equidistant, undistort_points_radtan)
     from zenslam_tpu_torch.ops.image import remap
@@ -303,7 +373,10 @@ def distort_sequence(seq: SyntheticSequence, dist, model: str = "radtan") -> Syn
     my = (nu[:, 1] * fy + cy).reshape(H, W)
 
     def warp(frames):
-        return np.stack([remap(torch.as_tensor(np.asarray(f)).cpu(), mx, my).numpy()
+        if isinstance(frames, torch.Tensor):  # device-rendered: remap on its device
+            mxd, myd = mx.to(frames.device), my.to(frames.device)
+            return torch.stack([remap(f, mxd, myd) for f in frames])
+        return np.stack([remap(torch.as_tensor(np.asarray(f)), mx, my).numpy()
                          for f in frames])
 
     return seq._replace(left=warp(seq.left), right=warp(seq.right))
@@ -356,9 +429,11 @@ def write_png_gray(path: str, img: np.ndarray) -> None:
 
 def export_dataset(seq: SyntheticSequence, root: str) -> None:
     """Write a sequence as an EuRoC-style folder: 8-bit PNGs named by
-    nanosecond timestamps under cam0/data and cam1/data, and groundtruth.csv
-    (ns, camera centre, R_wc quaternion w x y z). Device-rendered frames are
-    quantised on their device and copied once per frame."""
+    nanosecond timestamps under cam0/data and cam1/data, groundtruth.csv
+    (ns, camera centre, R_wc quaternion w x y z) and, when the sequence
+    carries IMU, imu0/data.csv (ns, wx, wy, wz, ax, ay, az; sample k of
+    frame interval i stamped at the end of its dt). Device-rendered frames
+    are quantised on their device and copied once per frame."""
     from zenslam_tpu_torch.geometry.lie import rotmat_to_quat
 
     os.makedirs(os.path.join(root, "cam0/data"), exist_ok=True)
@@ -380,6 +455,18 @@ def export_dataset(seq: SyntheticSequence, root: str) -> None:
         q = rotmat_to_quat(torch.from_numpy(np.ascontiguousarray(R.T))).numpy()
         gt_rows.append([ns, c[0], c[1], c[2], q[0], q[1], q[2], q[3]])
     np.savetxt(os.path.join(root, "groundtruth.csv"), np.asarray(gt_rows), delimiter=",")
+    if seq.gyro is not None:
+        os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+        rows = []
+        for i in range(seq.left.shape[0]):
+            acc = seq.timestamps[i - 1] if i else seq.timestamps[0]
+            for k in range(seq.gyro.shape[1]):
+                if not seq.imu_mask[i, k]:
+                    continue
+                acc += float(seq.imu_dts[i, k])
+                rows.append([int(acc * 1e9) + t0_ns, *seq.gyro[i, k], *seq.accel[i, k]])
+        np.savetxt(os.path.join(root, "imu0/data.csv"), np.asarray(rows), delimiter=",",
+                   fmt=["%d"] + ["%.9f"] * 6)
 
 
 def distorted_camera_rays(cam: PinholeCamera, model: str = "radtan") -> np.ndarray:
@@ -402,8 +489,8 @@ def distorted_camera_rays(cam: PinholeCamera, model: str = "radtan") -> np.ndarr
 def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
                             models=("radtan", "radtan"), n_frames: int = 12,
                             motion: str = "strafe", dt: float = 0.1, speed: float = 0.25,
-                            pixel_noise: float = 0.0,
-                            device_render: bool = False) -> SyntheticSequence:
+                            pixel_noise: float = 0.0, device_render: bool = False,
+                            with_imu: bool = False) -> SyntheticSequence:
     """A stereo sequence rendered through a real (distorted) camchain rig,
     e.g. ``options/euroc_camchain.yaml``: the images are in the distorted
     geometry, so an app run with ``folder.calibration_file`` set to the same
@@ -411,7 +498,11 @@ def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
     or a slow forward arc. Groundtruth poses are the left camera's. With
     ``device_render`` the frames are rendered on the rig's device and
     returned as (T, H, W) tensors there (noise drawn from ``rng`` in the same
-    order as the host path)."""
+    order as the host path). ``with_imu``: IMU as ``make_sequence`` (10
+    samples a frame), in the rig's IMU frame (body = the IMU that
+    ``T_cam_imu``, i.e. ``rig_raw.R_ci``/``t_ci``, places against the left
+    camera, so the lever arm is in the accelerometer's reading), drawing
+    nothing from ``rng``."""
     world = make_corridor_world(rng)
     H, W = int(rig_raw.left.height), int(rig_raw.left.width)
     rays_l = distorted_camera_rays(rig_raw.left, models[0])
@@ -433,19 +524,33 @@ def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
             return torch.clamp(img.double() + torch.from_numpy(n).to(dev), 0, 1)
         return np.clip(img + n, 0, 1)
 
+    def pose_fn(t: float):
+        s = t * speed
+        c_w = np.array([s, 0.0, 0.0]) if motion == "strafe" else np.array([0.6 * s, 0.0, 0.4 * s])
+        return np.eye(3), -c_w
+
     timestamps = np.arange(n_frames, dtype=np.float64) * dt
     lefts, rights, Rs, ts = [], [], [], []
     for i in range(n_frames):
-        s = timestamps[i] * speed
-        c_w = np.array([s, 0.0, 0.0]) if motion == "strafe" else np.array([0.6 * s, 0.0, 0.4 * s])
-        R_cw = np.eye(3)
-        t_cw = -R_cw @ c_w
+        R_cw, t_cw = pose_fn(timestamps[i])
         li = noisy(render(rig_raw.left, R_cw, t_cw, rays_l))
         ri = noisy(render(rig_raw.right, R_rl @ R_cw, R_rl @ t_cw + t_rl, rays_r))
         lefts.append(li.float() if device_render else li.astype(np.float32))
         rights.append(ri.float() if device_render else ri.astype(np.float32))
         Rs.append(R_cw.astype(np.float32))
         ts.append(t_cw.astype(np.float32))
+    imu = {}
+    if with_imu:
+        R_ci = rig_raw.R_ci.double().cpu().numpy()
+        t_ci = rig_raw.t_ci.double().cpu().numpy()
+
+        def imu_pose(t: float):   # world -> IMU: T_ci^-1 ∘ T_cw
+            R_cw, t_cw = pose_fn(t)
+            return R_ci.T @ R_cw, R_ci.T @ (t_cw - t_ci)
+
+        gyro, accel, imu_dts, imu_mask = make_imu(imu_pose, timestamps)
+        imu = dict(gyro=gyro, accel=accel, imu_dts=imu_dts, imu_mask=imu_mask,
+                   gravity_w=np.float32([0.0, 9.81, 0.0]))
     stack = torch.stack if device_render else np.stack
     return SyntheticSequence(left=stack(lefts), right=stack(rights), R_lw=np.stack(Rs),
-                             t_lw=np.stack(ts), timestamps=timestamps, rig=rig_raw)
+                             t_lw=np.stack(ts), timestamps=timestamps, rig=rig_raw, **imu)

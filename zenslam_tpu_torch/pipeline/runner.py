@@ -20,13 +20,11 @@ def run_sequence(cfg: SlamConfig, rig: StereoRig, left, right, seed: int = 0,
                  mode: str = "stream", state=None, imu=None, device=None):
     """Run SLAM over a (T, H, W) stereo sequence (numpy arrays or tensors) on
     ``device`` (default: the given state's, else CUDA, raising when absent).
-    Returns (final_state, telemetry stacked over T as numpy). ``imu`` is not
-    ported (ROADMAP Queue 1 item 11) and raises."""
+    Returns (final_state, telemetry stacked over T as numpy). ``imu``:
+    optional (gyro (T, S, 3), accel (T, S, 3), dts (T, S), mask (T, S)), the
+    per-frame IMU batches (turns on the VIO branch of the step)."""
     if mode not in ("stream", "scan"):
         raise ValueError(f"unknown mode {mode!r} (stream, scan)")
-    if imu is not None:
-        raise NotImplementedError(
-            "imu is not ported to zenslam_tpu_torch yet, see ROADMAP.md Queue 1 item 11 (IMU/VIO)")
     T, H, W = left.shape
     dev = state.R_cw.device if state is not None else resolve_device(device)
     if state is None:
@@ -37,9 +35,12 @@ def run_sequence(cfg: SlamConfig, rig: StereoRig, left, right, seed: int = 0,
 
     if mode == "scan":
         left, right = frames(left), frames(right)
+        if imu is not None:
+            imu = tuple(torch.as_tensor(x).to(dev) for x in imu)
     tels = []
     for t in range(T):
         il, ir = (left[t], right[t]) if mode == "scan" else (frames(left[t]), frames(right[t]))
-        state, tel = slam_step(cfg, rig, state, il, ir)
+        fi = None if imu is None else tuple(x[t] for x in imu)
+        state, tel = slam_step(cfg, rig, state, il, ir, imu=fi)
         tels.append(tel)
     return state, type(tels[0])(*(torch.stack(xs).cpu().numpy() for xs in zip(*tels)))

@@ -7,10 +7,11 @@
 state lives on CUDA and False on the CPU, and the pyramid is stored in bf16
 on the kernel path, f32 otherwise.
 
-The state carries no keyline or IMU tables: those subsystems are not ported
-(``check_supported``). The reference's JAX PRNG key becomes ``rng_seed`` and
-``rng_step`` (plain ints): frame k's draws come from a ``torch.Generator``
-seeded from that pair.
+The state carries no keyline tables: keylines are not ported
+(``check_supported``). It carries the reference's ``VioState`` (velocity,
+gravity estimate and ring, biases, 3-pose history) as ``vio``. The
+reference's JAX PRNG key becomes ``rng_seed`` and ``rng_step`` (plain ints):
+frame k's draws come from a ``torch.Generator`` seeded from that pair.
 """
 
 from __future__ import annotations
@@ -87,15 +88,13 @@ class SlamConfig(NamedTuple):
     line_epipolar_min_deg: float = 45.0
 
 
-def check_supported(cfg: SlamConfig, imu=None) -> None:
+def check_supported(cfg: SlamConfig) -> None:
     """Raise NotImplementedError for configurations this port does not run
     yet, naming the ROADMAP.md item that will port them."""
     todo = []
     if cfg.use_keylines:
         todo.append("use_keylines (Queue 1 item 13: keylines, ops/lines.py + "
                     "pipeline/lines_step.py)")
-    if imu is not None:
-        todo.append("imu (Queue 1 item 11: IMU/VIO)")
     if cfg.descriptor != "orb":
         todo.append(f"descriptor={cfg.descriptor!r} (Queue 1 item 12: other detector/"
                     "descriptor families)")
@@ -104,8 +103,6 @@ def check_supported(cfg: SlamConfig, imu=None) -> None:
                     "descriptor families)")
     if cfg.describe_refresh > 1:
         todo.append("describe_refresh > 1 (Queue 1 item 12: the describe_refresh merge)")
-    if cfg.use_pose_fusion:
-        todo.append("use_pose_fusion (Queue 1 item 10: estimation/fusion.py)")
     if todo:
         raise NotImplementedError(
             "not ported to zenslam_tpu_torch yet, see ROADMAP.md: " + "; ".join(todo))
@@ -146,6 +143,39 @@ class MotionModel(NamedTuple):
     n_updates: torch.Tensor  # () int32
 
 
+class VioState(NamedTuple):
+    """Visual-inertial state carried across frames (see the reference)."""
+
+    v_world: torch.Tensor       # (3,) body velocity in world frame
+    gravity_w: torch.Tensor     # (3,) current gravity estimate (world)
+    gravity_ok: torch.Tensor    # () bool: enough samples accepted
+    bias_gyro: torch.Tensor     # (3,)
+    bias_accel: torch.Tensor    # (3,)
+    grav_samples: torch.Tensor  # (C, 3) gravity-estimator sample ring
+    grav_valid: torch.Tensor    # (C,) bool
+    grav_next: torch.Tensor     # () int32
+    hist_p: torch.Tensor        # (3, 3) oldest-first body positions
+    hist_R_wb: torch.Tensor     # (3, 3, 3)
+    hist_dt: torch.Tensor       # (2,) dt between consecutive history poses
+    hist_f: torch.Tensor        # (2, 3) mean specific force per interval
+    hist_n: torch.Tensor        # () int32 valid history poses
+
+
+def init_vio(gravity_capacity: int = 64, device=None) -> VioState:
+    f32 = torch.float32
+
+    def z(*shape, dtype=f32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return VioState(
+        v_world=z(3), gravity_w=z(3), gravity_ok=z(dtype=torch.bool), bias_gyro=z(3),
+        bias_accel=z(3), grav_samples=z(gravity_capacity, 3),
+        grav_valid=z(gravity_capacity, dtype=torch.bool), grav_next=z(dtype=torch.int32),
+        hist_p=z(3, 3),
+        hist_R_wb=torch.eye(3, dtype=f32, device=device).expand(3, 3, 3).clone(),
+        hist_dt=z(2), hist_f=z(2, 3), hist_n=z(dtype=torch.int32))
+
+
 class SlamState(NamedTuple):
     features: FeatureTable
     lmap: LandmarkMap
@@ -160,6 +190,7 @@ class SlamState(NamedTuple):
     prev_pyr_l: tuple              # ragged levels at true size
     rng_seed: int                  # per-state seed
     rng_step: int                  # frames drawn so far
+    vio: VioState
 
 
 class FrameTelemetry(NamedTuple):
@@ -268,4 +299,5 @@ def init_state(cfg: SlamConfig, image_shape, seed: int = 0, device=None) -> Slam
         prev_pyr_l=empty_ragged_pyramid(H, W, cfg.pyramid_levels,
                                         pyramid_dtype(cfg, dev), device=dev),
         rng_seed=int(seed), rng_step=0,
+        vio=init_vio(device=dev),
     )

@@ -1,10 +1,12 @@
 """The per-frame SLAM step — counterpart of ``zenslam_tpu/pipeline/step.py:
 slam_step`` under the configurations ``check_supported`` accepts.
 
-Stages, in the reference's order: pyramid pair → predict → temporal KLT →
-FAST top-up → ORB describe → associate → temporal rematch → stereo KLT and
-triangulation → pose cascade → map update → keyframe decision → motion
-update → telemetry.
+Stages, in the reference's order: pyramid pair → predict (IMU
+preintegration and the inertial prediction when an IMU batch is given) →
+temporal KLT → FAST top-up → ORB describe → associate → temporal rematch →
+stereo KLT and triangulation → pose cascade (fused when
+``use_pose_fusion``) → map update → keyframe decision → motion update → VIO
+update (velocity, gravity) → telemetry.
 
 On the kernel path (``resolve_use_kernels``) the two KLT stages run
 ``ops/lk_cuda.lk_ragged`` and the describe stage ``ops/orb_cuda``; otherwise
@@ -26,6 +28,11 @@ from zenslam_tpu_torch.geometry.camera import (
 from zenslam_tpu_torch.geometry.lie import (
     rotation_angle, se3_apply, se3_compose, se3_inverse, so3_exp, so3_log)
 from zenslam_tpu_torch.geometry.triangulate import epipolar_residual, triangulate_dlt
+from zenslam_tpu_torch.imu.continuous import preintegrate_continuous
+from zenslam_tpu_torch.imu.gravity import (
+    GravityEstimator, gravity_add_sample, gravity_estimate)
+from zenslam_tpu_torch.imu.predictors import inertial_predict_pose, propagate_velocity
+from zenslam_tpu_torch.imu.preintegration import ImuNoise, preintegrate
 from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
 from zenslam_tpu_torch.ops.image import clahe
 from zenslam_tpu_torch.ops.lk import (
@@ -35,7 +42,7 @@ from zenslam_tpu_torch.ops.match import epipolar_gate, match_descriptors, radius
 from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
 from zenslam_tpu_torch.pipeline.state import (
-    FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState,
+    FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
     check_supported, frame_generator, pyramid_dtype, resolve_use_kernels)
 
 _I32 = torch.int32
@@ -195,6 +202,76 @@ def _temporal_rematch(cfg, rig: StereoRig, feats: FeatureTable, prev_desc, prev_
     return feats._replace(lm_idx=new_lm), ok.sum()
 
 
+def _body_pose_world(rig: StereoRig, R_cw, t_cw):
+    """Body (IMU) rotation R_wb and position p_w from the camera pose
+    (T_iw = T_ci^-1 ∘ T_cw)."""
+    Ric, tic = se3_inverse(rig.R_ci, rig.t_ci)
+    R_iw, t_iw = se3_compose(Ric, tic, R_cw, t_cw)
+    return se3_inverse(R_iw, t_iw)
+
+
+def _preintegrate(cfg: SlamConfig, vio: VioState, gyro, accel, dts, mask):
+    """The interval's ImuIntegral by ``cfg.imu_method``: the manifold scan
+    ("basalt") or a continuous-time backend on midpoint timestamps rebuilt
+    from the dts, on a grid as long as the padded batch."""
+    noise = ImuNoise(gyro_noise=cfg.imu_gyro_noise, accel_noise=cfg.imu_accel_noise,
+                     gyro_bias_walk=cfg.imu_gyro_bias_walk,
+                     accel_bias_walk=cfg.imu_accel_bias_walk)
+    if cfg.imu_method == "basalt":
+        return preintegrate(gyro, accel, dts, mask, noise=noise, bias_gyro=vio.bias_gyro,
+                            bias_accel=vio.bias_accel)
+    d = torch.where(mask, dts, 0.0)
+    return preintegrate_continuous(
+        torch.cumsum(d, 0) - 0.5 * d, gyro, accel, mask, torch.zeros_like(d[0]), d.sum(),
+        n_grid=int(gyro.shape[0]), method=cfg.imu_method, noise=noise,
+        bias_gyro=vio.bias_gyro, bias_accel=vio.bias_accel)
+
+
+def _vio_predict(rig: StereoRig, state: SlamState, integral, R_pred_cv, t_pred_cv):
+    """The inertial prediction once gravity and velocity are observable,
+    else the constant-velocity one."""
+    vio = state.vio
+    R_i, t_i = inertial_predict_pose(state.R_cw, state.t_cw, vio.v_world, vio.gravity_w,
+                                     integral, rig.R_ci, rig.t_ci)
+    use = vio.gravity_ok & (vio.hist_n >= 1) & (integral.dt > 0)
+    return torch.where(use, R_i, R_pred_cv), torch.where(use, t_i, t_pred_cv)
+
+
+def _vio_update(rig: StereoRig, vio: VioState, integral, accel, mask,
+                R_cw_prev, t_cw_prev, R_cw, t_cw, pose_ok) -> VioState:
+    """Post-estimation VIO bookkeeping: velocity from the VO pose difference
+    (IMU-propagated fallback), the 3-pose history, a gravity sample from the
+    central-difference VO acceleration, and the gravity re-estimate."""
+    R_wb_now, p_now = _body_pose_world(rig, R_cw, t_cw)
+    R_wb_prev, _ = _body_pose_world(rig, R_cw_prev, t_cw_prev)
+    dt = integral.dt
+    have_prev = vio.hist_n >= 1
+    v_vo = (p_now - vio.hist_p[2]) / torch.clamp(dt, min=1e-6)
+    v_imu = propagate_velocity(vio.v_world, vio.gravity_w, R_wb_prev, integral)
+    v_new = torch.where(pose_ok & have_prev & (dt > 0), v_vo,
+                        torch.where(vio.gravity_ok & (dt > 0), v_imu, vio.v_world))
+    # mean specific force over the interval (bias-corrected); a where and a
+    # sum, not boolean indexing, which would read the count back
+    n_s = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+    f_mean = torch.where(mask[:, None], accel, 0.0).sum(0) / n_s - vio.bias_accel
+    hist_p = torch.cat([vio.hist_p[1:], p_now[None]])
+    hist_R = torch.cat([vio.hist_R_wb[1:], R_wb_now[None]])
+    hist_dt = torch.cat([vio.hist_dt[1:], dt[None]])
+    hist_f = torch.cat([vio.hist_f[1:], f_mean[None]])
+    est = GravityEstimator(samples=vio.grav_samples, valid=vio.grav_valid,
+                           next_slot=vio.grav_next)
+    new = gravity_add_sample(est, hist_p[0], hist_p[1], hist_p[2], hist_dt[0], hist_dt[1],
+                             hist_R[1], 0.5 * (hist_f[0] + hist_f[1]))
+    can_sample = (vio.hist_n >= 2) & pose_ok & (hist_dt > 0).all()
+    est = GravityEstimator(*(torch.where(can_sample, a, b) for a, b in zip(new[:3], est[:3])))
+    g, g_ok = gravity_estimate(est)
+    return vio._replace(
+        v_world=v_new, gravity_w=torch.where(g_ok, g, vio.gravity_w),
+        gravity_ok=g_ok | vio.gravity_ok, grav_samples=est.samples, grav_valid=est.valid,
+        grav_next=est.next_slot, hist_p=hist_p, hist_R_wb=hist_R, hist_dt=hist_dt,
+        hist_f=hist_f, hist_n=torch.clamp(vio.hist_n + 1, max=3).to(_I32))
+
+
 def _keyframe_decision(cfg, state: SlamState, R_cw, t_cw, n_inliers, tracked_ratio):
     first = state.frame_idx == 0
     Ri, ti = se3_inverse(state.last_kf_R, state.last_kf_t)
@@ -217,9 +294,10 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
 
     img_l/img_r: (H, W) float32 in [0, 1]. noise: optional ``CascadeNoise``
     (Gumbel draws of the four RANSAC estimators); None draws them from the
-    state's generator (seed, frame counter). imu: the reference's IMU batch;
-    not ported yet, so anything but None raises NotImplementedError."""
-    check_supported(cfg, imu)
+    state's generator (seed, frame counter). imu: optional (gyro (S, 3),
+    accel (S, 3), dts (S,), mask (S,)), the IMU samples of the interval
+    ending at this frame; it turns on the VIO branch."""
+    check_supported(cfg)
     dev = img_l.device
     use_k = resolve_use_kernels(cfg, dev)
     N = cfg.max_keypoints
@@ -230,8 +308,19 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
                                              dtype=pyramid_dtype(cfg, dev))
     F_rig = fundamental_from_rig(rig)
 
-    # ---- PREDICT -----------------------------------------------------------
+    # ---- PREDICT (IMU preintegration and the inertial prediction) ----------
     R_pred, t_pred = _predict_pose(state)
+    pred_sigma_p = None
+    if imu is not None:
+        gyro, accel, imu_dts = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                                for x in imu[:3])
+        imu_mask = torch.as_tensor(imu[3], device=dev).to(torch.bool)
+        integral = _preintegrate(cfg, state.vio, gyro, accel, imu_dts, imu_mask)
+        R_pred, t_pred = _vio_predict(rig, state, integral, R_pred, t_pred)
+        # 1-sigma position uncertainty of the prediction, the inertial
+        # candidate's weight in pose fusion
+        pred_sigma_p = torch.sqrt(torch.clamp(
+            torch.diagonal(integral.cov[6:9, 6:9]).sum() / 3.0, min=1e-18))
 
     # ---- TRACK (temporal) --------------------------------------------------
     prev_xy = state.features.xy
@@ -292,7 +381,8 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         noise, rig, X_w_lm, feats.xy, corr0, X_w_lm, feats.uv_r, corr1,
         X_w_cur, X_w_lm, corr3d, R_pred, t_pred,
         pnp_threshold=cfg.pnp_threshold, rigid_threshold=cfg.rigid_threshold,
-        min_inliers=cfg.min_inliers, fuse=cfg.use_pose_fusion, **ess_kwargs)
+        min_inliers=cfg.min_inliers, fuse=cfg.use_pose_fusion, pred_sigma_p=pred_sigma_p,
+        **ess_kwargs)
     R_cw, t_cw = est.R, est.t
 
     # ---- MAP UPDATE --------------------------------------------------------
@@ -353,12 +443,16 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         acc=torch.where(first, mm.acc, 0.5 * ((vel_obs - mm.vel) + mm.acc)),
         acc_ang=torch.where(first, mm.acc_ang, 0.5 * ((ang_obs - mm.vel_ang) + mm.acc_ang)),
         n_updates=(mm.n_updates + 1).to(_I32))
+    vio = state.vio
+    if imu is not None:
+        vio = _vio_update(rig, vio, integral, accel, imu_mask, state.R_cw, state.t_cw,
+                          R_cw, t_cw, est.ok)
 
     new_state = SlamState(
         features=feats, lmap=lmap, R_cw=R_cw, t_cw=t_cw, motion=motion,
         last_kf_R=last_kf_R, last_kf_t=last_kf_t, frames_since_kf=frames_since_kf,
         frame_idx=(state.frame_idx + 1).to(_I32), next_track_id=next_track_id,
-        prev_pyr_l=pyr_l, rng_seed=state.rng_seed, rng_step=state.rng_step + 1)
+        prev_pyr_l=pyr_l, rng_seed=state.rng_seed, rng_step=state.rng_step + 1, vio=vio)
     zero = torch.zeros((), dtype=_I32, device=dev)
     telem = FrameTelemetry(
         n_tracked=n_tracked, n_detected=n_detected,

@@ -564,8 +564,9 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
     """One frame (two (H, W) images, numpy arrays or tensors) through the full
     system. Returns (telemetry or None while the lag queue fills, backend
     info). ``noise``: the front end's ``CascadeNoise`` (None: drawn from the
-    state's generator). ``imu`` is not ported (ROADMAP Queue 1 item 11) and
-    raises."""
+    state's generator). ``imu``: optional (gyro (S, 3), accel (S, 3), dts
+    (S,), mask (S,)), arrays or tensors, the IMU samples of the interval
+    ending at this frame (the VIO branch)."""
     t0 = time.time()
     img_l = torch.as_tensor(img_l, dtype=torch.float32, device=sys.device)
     img_r = torch.as_tensor(img_r, dtype=torch.float32, device=sys.device)
@@ -729,13 +730,12 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
 
 def run_system(sys: SlamSystem, left, right, imu=None):
     """Run a (T, H, W) stereo sequence (numpy arrays or tensors) through the
-    full system; returns (telemetry stacked over frames as numpy, infos)."""
-    if imu is not None:
-        raise NotImplementedError(
-            "imu is not ported to zenslam_tpu_torch yet, see ROADMAP.md Queue 1 item 11 (IMU/VIO)")
+    full system; returns (telemetry stacked over frames as numpy, infos).
+    imu: optional (gyro (T, S, 3), accel (T, S, 3), dts (T, S), mask (T, S))."""
     tels, infos = [], []
     for t in range(left.shape[0]):
-        tel, info = process_frame(sys, left[t], right[t])
+        fi = None if imu is None else tuple(x[t] for x in imu)
+        tel, info = process_frame(sys, left[t], right[t], imu=fi)
         if tel is not None:
             tels.append(tel)
             infos.append(info)
