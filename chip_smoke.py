@@ -78,8 +78,34 @@ Phases (each one fatal on failure):
    rectified, with its IMU slice; device kernels and busy ms by
    ``torch.profiler``, host ms over 10 alternating pairs),
    and the implicit synchronises by source line, none of them in ``imu/``
-   or ``estimation/fusion.py``;
-11. a ``kernels`` JSON line (``launches`` is the system phase's count,
+   or ``estimation/fusion.py``; a third run (``fulldress_lines``) with that
+   script's hard slam flags (CLAHE, pose fusion, keylines) and the IMU:
+   ATE < 100 mm, 4 LK + 1 ORB launches per frame;
+11. lines: (a) ``slam_step`` with ``SlamConfig(use_keylines=True)`` on a
+   1024x1024 strafe of the corridor with stripes rendered on the card,
+   LINES_FRAMES frames (LINES_WARMUP warm-up, the implicit synchronises of
+   which are reported by line, none allowed in ``ops/lines.py`` or
+   ``pipeline/lines_step.py``), beside the same frames with keylines off:
+   exactly 4 LK + 1 ORB launches per frame (2 + 1 off), pose_ok >= 0.9, ATE
+   < 0.05 m, >= 8 keylines on every frame after the first, >= 4 mapped and
+   more than 60% of their endpoints within 10 cm of a corridor plane; the
+   LK kernel against its plain version on the last frame's two endpoint
+   batches with the step's arguments (temporal with init_pts, stereo); what
+   the keyline branch adds to that step (device kernels and busy ms by
+   ``torch.profiler``, host ms over 10 alternating pairs); (b) the keylines
+   recipe ``options/euroc_mh_lines.yaml`` through ``app.main`` on an
+   APP_FRAMES-frame 752x480 folder of the corridor with stripes rendered
+   through ``options/euroc_camchain.yaml`` with ``imu0/data.csv``: as
+   shipped (``lines_app``), with CLAHE off (``lines_app_no_clahe``: the
+   synthetic corridor keeps no keyline through CLAHE at this size) and
+   ``options/euroc_mh.yaml`` on the same folder (``lines_app_base``): each
+   passes ``eval/check_run.py`` against ``options/euroc_mh_expected.json``
+   with a BA run per keyframe after the first, 4 LK + 1 ORB launches per
+   frame with keylines (2 + 1 without), the ATE with keylines under
+   max(1.5 x the base's, 20 mm), >= 8 keylines a frame with CLAHE off; and
+   a checkpoint of the CLAHE-off keylines system after frame APP_CKPT_FRAME
+   (its line tables populated) loaded back bit-identical;
+12. a ``kernels`` JSON line (``launches`` is the system phase's count,
    ``launches_by_path`` every path's), the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -107,6 +133,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import functools
 import json
 import re
 import subprocess
@@ -127,6 +154,9 @@ APP_FRAMES = 80      # app phase: the exported EuRoC-layout sequence
 APP_CKPT_FRAME = 40  # app phase: the checkpoint round trip saves after this frame
 FULLDRESS_FRAMES = 60
 FULLDRESS_DIST = [-0.12, 0.035, 0.0006, -0.0004]   # e2e_fulldress.py's radtan
+HARD_SLAM = {"use_clahe": True, "use_pose_fusion": True, "use_keylines": True}  # its --hard
+LINES_FRAMES = 40    # lines phase: slam_step with keylines on a 1024x1024 strafe
+LINES_WARMUP = 8
 SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -1079,33 +1109,45 @@ def phase_app(dev):
         checkpoint.save_system(str(ck), s)
         s2 = checkpoint.load_system(str(ck), opts.slam, opts.backend, maps.rig_rectified,
                                     (480, 752), device=dev)
-        trees = [{"state": x.state, "kf_db": x.kf_db, "bow_db": x.bow_db,
-                  "vocab": x.vocab, "queue": [q[1] for q in x._tel_queue]} for x in (s, s2)]
-        la, lb = (checkpoint._flatten(t) for t in trees)
-        same = [n for n, _ in la] == [n for n, _ in lb] and all(
-            (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y))
-            if isinstance(x, torch.Tensor) else x == y for (_, x), (_, y) in zip(la, lb))
-        same &= all(np.array_equal(p.numpy(), q.numpy())
-                    for (p, _, _), (q, _, _) in zip(s._tel_queue, s2._tel_queue))
-        same &= (s.edge_i == s2.edge_i and s.edge_j == s2.edge_j and s.edge_w == s2.edge_w
-                 and all(np.array_equal(checkpoint._to_numpy(x), y)
-                         for x, y in zip(s.edge_R + s.edge_t, s2.edge_R + s2.edge_t)))
-        a, b = s.archive, s2.archive
-        same &= (all(np.array_equal(getattr(a, k), getattr(b, k))
-                     for k in ("xyz", "desc", "color", "dormant", "_slot_row", "_slot_gen"))
-                 and a._row_key == b._row_key and a.reload_keys == b.reload_keys)
+        same, la = systems_identical(s, s2)
         n_vio = sum(n.startswith("['state'].vio.") for n, _ in la)
         vio = s.state.vio
         print(f"[app] checkpoint after frame {APP_CKPT_FRAME}: {len(la)} tensors and numbers "
               f"of state ({n_vio} of its VioState: {int(vio.grav_valid.sum())} gravity samples, "
               f"history {int(vio.hist_n)}), keyframe DB ({s.n_keyframes} keyframes), BoW DB, "
               f"vocabulary and telemetry queue ({len(s._tel_queue)}), {len(s.edge_i)} edges, "
-              f"archive {len(a)} rows: {'bit-identical' if same else 'DIFFERENT'} after "
+              f"archive {len(s.archive)} rows: {'bit-identical' if same else 'DIFFERENT'} after "
               f"load_system ({ck.stat().st_size / 2 ** 20:.1f} MiB)")
         require(same and n_vio == 13, "app: checkpoint round trip on the card is not "
                                       "bit-identical or lacks the VioState")
     print(f"[app] phase {time.perf_counter() - t0:.1f} s")
     return launches, lk_err
+
+
+def systems_identical(s, s2) -> tuple:
+    """Whether two systems (one saved, one loaded back) hold the same state,
+    tables, vocabulary, telemetry queue, edges and archive, bit for bit;
+    and the state trees' named leaves."""
+    import torch
+
+    from zenslam_tpu_torch.io import checkpoint
+
+    trees = [{"state": x.state, "kf_db": x.kf_db, "bow_db": x.bow_db,
+              "vocab": x.vocab, "queue": [q[1] for q in x._tel_queue]} for x in (s, s2)]
+    la, lb = (checkpoint._flatten(t) for t in trees)
+    same = [n for n, _ in la] == [n for n, _ in lb] and all(
+        (x.dtype == y.dtype and x.device == y.device and torch.equal(x, y))
+        if isinstance(x, torch.Tensor) else x == y for (_, x), (_, y) in zip(la, lb))
+    same &= all(np.array_equal(p.numpy(), q.numpy())
+                for (p, _, _), (q, _, _) in zip(s._tel_queue, s2._tel_queue))
+    same &= (s.edge_i == s2.edge_i and s.edge_j == s2.edge_j and s.edge_w == s2.edge_w
+             and all(np.array_equal(checkpoint._to_numpy(x), y)
+                     for x, y in zip(s.edge_R + s.edge_t, s2.edge_R + s2.edge_t)))
+    a, b = s.archive, s2.archive
+    same &= (all(np.array_equal(getattr(a, k), getattr(b, k))
+                 for k in ("xyz", "desc", "color", "dormant", "_slot_row", "_slot_gen"))
+             and a._row_key == b._row_key and a.reload_keys == b.reload_keys)
+    return same, la
 
 
 def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
@@ -1115,11 +1157,10 @@ def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
     slice and without: device kernels and copies and their busy ms
     (``torch.profiler``, one call each after a warm call), and host ms
     (perf_counter around the call and a synchronise, ``pairs`` alternating
-    pairs, medians). Returns {name: (count, busy ms, ms)}."""
+    pairs, medians; ``step_cost``). Returns {name: (count, busy ms, ms)}."""
     from itertools import islice
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from zenslam_tpu_torch import app
     from zenslam_tpu_torch.config import load_options
@@ -1148,27 +1189,40 @@ def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
                                    tuple(il.shape), device=dev)
         process_frame(system, il, ir, imu=imu)
     require(int(imu[3].sum()) > 0, "fulldress: the timed frame has no IMU samples")
-    imus = {"imu": imu, "no_imu": None}
+    cost, _ = step_cost({name: functools.partial(slam_step, system.cfg, system.rig, system.state,
+                                                 il, ir, imu=x)
+                         for name, x in (("imu", imu), ("no_imu", None))}, pairs)
+    return cost
 
-    def step(name):
-        return slam_step(system.cfg, system.rig, system.state, il, ir, imu=imus[name])
 
-    out, ms = {}, {name: [] for name in imus}
-    for name in imus:
-        step(name)
+def step_cost(steps: dict, pairs: int = 10) -> tuple:
+    """Each of two step functions {name: fn} measured alike: device kernels
+    and copies and their busy ms (``torch.profiler``, one call each after a
+    warm call), device ms by operator, and host ms (perf_counter around the
+    call and a synchronise, ``pairs`` alternating pairs, medians). Returns
+    ({name: (count, busy ms, ms)}, {name: Counter(operator: device ms)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out, ms, by_op = {}, {name: [] for name in steps}, {}
+    for name, step in steps.items():
+        step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(name)
+            step()
             torch.cuda.synchronize()
         dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         out[name] = (len(dev_events), sum(e.time_range.elapsed_us() for e in dev_events) / 1e3)
+        by_op[name] = Counter({e.key: getattr(e, "device_time_total", 0.0) / 1e3
+                               for e in prof.key_averages()})
+    names = list(steps)
     for i in range(pairs):
-        for name in (("imu", "no_imu") if i % 2 == 0 else ("no_imu", "imu")):
+        for name in (names if i % 2 == 0 else names[::-1]):
             t0 = time.perf_counter()
-            step(name)
+            steps[name]()
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: (*out[name], float(np.median(ms[name]))) for name in imus}
+    return {name: (*out[name], float(np.median(ms[name]))) for name in steps}, by_op
 
 
 def phase_fulldress(dev):
@@ -1194,15 +1248,18 @@ def phase_fulldress(dev):
         print(f"[fulldress] rendered, distorted and exported {FULLDRESS_FRAMES} stereo frames "
               f"1024x1024 with IMU in {time.perf_counter() - t0:.1f} s")
         runs = {}
+        fused = {"use_pose_fusion": True}
         with captured_systems() as created:
-            for run, extra in (("fulldress", ()), ("fulldress_no_imu", ("--no-imu",))):
+            for run, extra, slam in (("fulldress", (), fused),
+                                     ("fulldress_no_imu", ("--no-imu",), fused),
+                                     ("fulldress_lines", (), HARD_SLAM)):
                 out = Path(tmp) / run
                 opts_path = Path(tmp) / f"{run}.yaml"
                 opts_path.write_text(yaml.safe_dump({
                     "folder": {"root": str(root), "output": str(out),
                                "calibration_file": str(root / "camchain.yaml"),
                                "groundtruth_file": str(root / "groundtruth.csv")},
-                    "slam": {"use_pose_fusion": True},
+                    "slam": slam,
                     "backend": {"ba_every_kf": True, "enable_loop_closure": True}}))
                 with implicit_syncs() as records:
                     launches, r, n_kf, n_ba, _ = run_app(run, opts_path, out, dev, extra)
@@ -1225,6 +1282,13 @@ def phase_fulldress(dev):
         steady = {k: v[1].get("steady_ms", float("nan")) for k, v in runs.items()}
         print(f"[fulldress] steady ms/frame with IMU {steady['fulldress']:.2f}, without "
               f"{steady['fulldress_no_imu']:.2f}")
+        _, r_hard, _, rows_hard, _ = runs["fulldress_lines"]
+        n_lines = [int(row["n_lines"]) for row in rows_hard]
+        print(f"[fulldress_lines] e2e_fulldress.py's hard slam flags {HARD_SLAM} with IMU: ATE "
+              f"{r_hard.get('ate_mm', float('nan')):.1f} mm (bound 100), RPE "
+              f"{r_hard.get('rpe_mm', float('nan')):.1f} mm, steady "
+              f"{steady['fulldress_lines']:.2f} ms/frame; keylines per frame max "
+              f"{max(n_lines)}, line map at the end {rows_hard[-1]['line_map_size']}")
         n = sum(sites.values())
         print(f"[fulldress] implicit synchronises in the IMU run: {n} ({n / len(rows):.3f} per "
               f"frame); by line: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common(16)))
@@ -1238,14 +1302,269 @@ def phase_fulldress(dev):
               f"{k_imu - k_plain}), device busy {busy_imu:.3f} / {busy_plain:.3f} ms, host "
               f"{ms_imu:.2f} / {ms_plain:.2f} ms (median of 10 alternating pairs; the VIO "
               f"branch {ms_imu - ms_plain:.2f} ms)")
-        require(r.get("ate_mm", float("inf")) < 100.0, f"fulldress: ATE {r.get('ate_mm')} mm "
-                                                       ">= 100 mm")
+        for run in ("fulldress", "fulldress_lines"):
+            ate = runs[run][1].get("ate_mm", float("inf"))
+            require(ate < 100.0, f"{run}: ATE {ate} mm >= 100 mm")
         require(bool(vio.gravity_ok) and g_err < 0.5, f"fulldress: gravity error {g_err:.3f}")
         require(not in_vio, f"fulldress: implicit synchronises in the VIO modules {in_vio}")
         for run, (lc, *_rest) in runs.items():
-            require(lc == {"lk_fb": 2 * FULLDRESS_FRAMES, "orb": FULLDRESS_FRAMES},
-                    f"{run}: launches {lc} != 2 LK + 1 ORB per frame")
+            k = 4 if run == "fulldress_lines" else 2
+            require(lc == {"lk_fb": k * FULLDRESS_FRAMES, "orb": FULLDRESS_FRAMES},
+                    f"{run}: launches {lc} != {k} LK + 1 ORB per frame")
     print(f"[fulldress] phase {time.perf_counter() - t0:.1f} s")
+    return {"fulldress": launches, "fulldress_lines": runs["fulldress_lines"][0]}
+
+
+@contextlib.contextmanager
+def recorded_lk_calls(calls: list):
+    """Inside the block, ``slam_step``'s LK kernel calls are appended to
+    ``calls`` as (args, kwargs)."""
+    from zenslam_tpu_torch.pipeline import step
+
+    inner = step.lk_ragged
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    step.lk_ragged = recorded
+    try:
+        yield calls
+    finally:
+        step.lk_ragged = inner
+
+
+def corridor_plane_share(line_map) -> tuple:
+    """(share of the mapped keyline endpoints within 10 cm of a corridor
+    plane: wall z=6, floor y=1.5, ceiling y=-1.2; their count)."""
+    pts = line_map.xyz[line_map.valid].reshape(-1, 3).cpu().numpy()
+    d = np.minimum(np.abs(pts[:, 2] - 6.0),
+                   np.minimum(np.abs(pts[:, 1] - 1.5), np.abs(pts[:, 1] + 1.2)))
+    return (float((d < 0.10).mean()) if len(pts) else 0.0), len(pts)
+
+
+def phase_lines(dev):
+    """Keylines on the card (see the module docstring): (a) ``slam_step``
+    with ``use_keylines`` on a 1024x1024 strafe of the corridor with stripes;
+    (b) the keylines recipe through ``app.main``. Returns {path: launches}."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+
+    t0 = time.perf_counter()
+    seq = make_sequence(np.random.default_rng(11), n_frames=LINES_FRAMES, width=SIZE,
+                        height=SIZE, motion="strafe", with_lines=True, device_render=True,
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"[lines] rendered {LINES_FRAMES} stereo frames {SIZE}x{SIZE} (strafe, corridor "
+          f"with stripes) in {time.perf_counter() - t0:.1f} s")
+    cfg_on = SlamConfig(use_keylines=True)
+    n = LINES_FRAMES - LINES_WARMUP
+    res = {}
+    for name, cfg in (("lines", cfg_on), ("no_lines", SlamConfig())):
+        state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+        tels = []
+        with implicit_syncs() as records:
+            for t in range(LINES_WARMUP):
+                state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+                tels.append(tel)
+            torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        for t in range(LINES_WARMUP, LINES_FRAMES - 1):
+            state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            tels.append(tel)
+        before_last = state
+        state, tel = slam_step(cfg, seq.rig, state, seq.left[-1], seq.right[-1])
+        tels.append(tel)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        R = torch.stack([x.R_cw for x in tels]).cpu().numpy()
+        tt = torch.stack([x.t_cw for x in tels]).cpu().numpy()
+        ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
+        res[name] = (read_launches(), dt / n * 1e3, tels, state, before_last, records, ate)
+    launches, ms, tels, state, before_last, records, ate = res["lines"]
+    ok = torch.stack([x.pose_ok for x in tels]).cpu().numpy()
+    n_lines = torch.stack([x.n_lines for x in tels]).cpu().numpy()
+    n_tri = torch.stack([x.n_line_triangulated for x in tels]).cpu().numpy()
+    ok_share = float(ok[1:].mean())
+    share, n_ep = corridor_plane_share(state.line_map)
+    map_size = int(state.line_map.valid.sum())
+    sites = sync_sites(records)
+    in_lines = sync_sites([w for w in records if w.filename.endswith(
+        ("ops/lines.py", "pipeline/lines_step.py"))])
+    print(f"[lines] slam_step with keylines, {n} frames: {ms:.2f} ms/frame "
+          f"({res['no_lines'][1]:.2f} with keylines off, same frames, same call) on "
+          f"{card_line()}; pose_ok {ok_share:.3f}, ATE {ate:.5f} m (keylines off "
+          f"{res['no_lines'][6]:.5f} m), launches {launches}")
+    print(f"[lines] keylines per frame min/median/max after frame 0 {int(n_lines[1:].min())}/"
+          f"{float(np.median(n_lines[1:])):.0f}/{int(n_lines.max())}, triangulated max "
+          f"{int(n_tri.max())}, line map {map_size}; {share:.3f} of its {n_ep} endpoints within "
+          f"10 cm of a corridor plane")
+    n_sync = sum(sites.values())
+    print(f"[lines] implicit synchronises over the {LINES_WARMUP} warm-up frames: {n_sync} "
+          f"({n_sync / LINES_WARMUP:.3f} per frame); by line: "
+          + ", ".join(f"{k} x{v}" for k, v in sites.most_common(16)))
+    print(f"[lines] of them in ops/lines.py or pipeline/lines_step.py: {dict(in_lines)}")
+
+    # the LK kernel against its plain version on the last frame's endpoint
+    # batches, with the arguments the step passed
+    calls = []
+    with recorded_lk_calls(calls):
+        slam_step(cfg_on, seq.rig, before_last, seq.left[-1], seq.right[-1])
+    torch.cuda.synchronize()
+    L2 = 2 * cfg_on.max_keylines
+    ends = [c for c in calls if c[0][2].shape[0] == L2]
+    require(len(calls) == 4 and len(ends) == 2, f"lines: {len(calls)} LK calls in a step, "
+                                                 f"{len(ends)} of {L2} endpoints")
+    lk_err = 0.0
+    for name, (args, kwargs) in zip(("endpoints temporal+init", "endpoints stereo"), ends):
+        kw = dict(kwargs)
+        init = kw.pop("init_pts", None)
+        require((name == "endpoints stereo") == (init is None), f"lines: {name} init_pts")
+        lk_err = max(lk_err, check_lk_cases("lines", {name: (args[0], args[1], init)},
+                                            args[2], args[3], kw))
+
+    k = LINES_FRAMES - 1
+    cost, by_op = step_cost({name: functools.partial(slam_step, c, seq.rig, before_last,
+                                                     seq.left[k], seq.right[k])
+                             for name, c in (("lines", cfg_on),
+                                             ("no_lines", cfg_on._replace(use_keylines=False)))})
+    added = by_op["lines"]
+    added.subtract(by_op["no_lines"])
+    print("[lines] device ms the keyline branch adds to that step, by operator "
+          "(torch.profiler, top 8): " + ", ".join(f"{k[:48]} {v:.3f}" for k, v in
+                                                  added.most_common(8)))
+    (k_on, busy_on, ms_on), (k_off, busy_off, ms_off) = cost["lines"], cost["no_lines"]
+    print(f"[lines] one slam_step on frame {k} from the state before it, keylines on / off: "
+          f"device kernels and copies {k_on} / {k_off} (torch.profiler; the keyline branch "
+          f"adds {k_on - k_off}), device busy {busy_on:.3f} / {busy_off:.3f} ms, host "
+          f"{ms_on:.2f} / {ms_off:.2f} ms (median of 10 alternating pairs; the branch "
+          f"{ms_on - ms_off:.2f} ms)")
+    require(launches == {"lk_fb": 4 * n, "orb": n},
+            f"lines: launches {launches} != 4 LK + 1 ORB per frame over {n} frames")
+    require(res["no_lines"][0] == {"lk_fb": 2 * n, "orb": n},
+            f"lines: keylines off launches {res['no_lines'][0]}")
+    require(ok_share >= 0.9, f"lines: pose_ok on {ok_share:.3f} < 0.9 of frames")
+    require(ate < 0.05, f"lines: ATE {ate:.4f} m >= 0.05 m")
+    require(int(n_lines[1:].min()) >= 8, f"lines: {int(n_lines[1:].min())} keylines < 8")
+    require(map_size >= 4, f"lines: line map {map_size} < 4")
+    require(share > 0.6, f"lines: {share:.3f} <= 0.6 of the endpoints on a plane")
+    require(not in_lines, f"lines: implicit synchronises in the keyline modules {in_lines}")
+    paths = {"lines": launches}
+    paths.update(phase_lines_app(dev))
+    print(f"[lines] phase {time.perf_counter() - t0:.1f} s")
+    return paths, lk_err
+
+
+def phase_lines_app(dev):
+    """(b): the keylines recipe (options/euroc_mh_lines.yaml) through
+    ``app.main`` on an APP_FRAMES-frame 752x480 EuRoC-layout folder of the
+    corridor with stripes rendered through options/euroc_camchain.yaml (with
+    imu0/data.csv), as shipped, with CLAHE off, and euroc_mh.yaml on the same
+    folder; each checked against options/euroc_mh_expected.json; the ATE
+    with keylines under max(1.5 x the base recipe's, 20 mm); a checkpoint of
+    the CLAHE-off keylines system after frame APP_CKPT_FRAME (line tables
+    populated) loaded back bit-identical. Returns {run: launches}."""
+    import tempfile
+    from itertools import islice
+
+    import torch
+    import yaml
+
+    from zenslam_tpu_torch import app
+    from zenslam_tpu_torch.config import load_options
+    from zenslam_tpu_torch.io import checkpoint
+    from zenslam_tpu_torch.io.calibration import compute_rectify_maps, load_kalibr_yaml
+    from zenslam_tpu_torch.io.dataset import FolderReader
+    from zenslam_tpu_torch.io.synthetic import export_dataset, make_distorted_sequence
+    from zenslam_tpu_torch.ops.image import remap
+    from zenslam_tpu_torch.pipeline.system import create_system, process_frame
+
+    here = Path(__file__).resolve().parent
+    camchain = here / "options" / "euroc_camchain.yaml"
+    t0 = time.perf_counter()
+    rig_raw, models = load_kalibr_yaml(str(camchain), device=dev)
+    seq = make_distorted_sequence(np.random.default_rng(9), rig_raw, models,
+                                  n_frames=APP_FRAMES, motion="strafe", dt=0.05, speed=0.5,
+                                  pixel_noise=0.005, device_render=True, with_imu=True,
+                                  with_lines=True)
+    launches, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "mav0"
+        export_dataset(seq, str(root))
+        print(f"[lines_app] exported {APP_FRAMES} stereo frames 752x480 of the corridor with "
+              f"stripes (distorted radtan) with IMU in {time.perf_counter() - t0:.1f} s")
+        recipes = {}
+        for run, name, clahe in (("lines_app", "euroc_mh_lines.yaml", None),
+                                 ("lines_app_no_clahe", "euroc_mh_lines.yaml", False),
+                                 ("lines_app_base", "euroc_mh.yaml", None)):
+            recipe = yaml.safe_load((here / "options" / name).read_text())
+            if clahe is not None:
+                recipe["slam"]["use_clahe"] = clahe
+            out = Path(tmp) / f"out_{run}"
+            opts_path = Path(tmp) / f"{run}.yaml"
+            opts_path.write_text(yaml.safe_dump({
+                "folder": {"root": str(root), "output": str(out),
+                           "calibration_file": str(camchain),
+                           "groundtruth_file": str(root / "groundtruth.csv")},
+                "slam": recipe["slam"], "backend": recipe["backend"]}))
+            recipes[run] = opts_path
+            launches[run], r, n_kf, n_ba, text = run_app(run, opts_path, out, dev)
+            with open(out / "frame_data.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            n_lines = [int(row["n_lines"]) for row in rows]
+            results[run] = r
+            print(f"[{run}] slam {recipe['slam']}: checker ATE "
+                  f"{r.get('ate_mm', float('nan')):.1f} mm, RPE {r.get('rpe_mm', float('nan')):.1f}"
+                  f" mm, failures {r['failures']}; keylines per frame mean "
+                  f"{np.mean(n_lines):.1f} max {max(n_lines)}, line map at the end "
+                  f"{rows[-1]['line_map_size']}")
+            require(not r["failures"], f"{run}: checker failed: {r['failures']}")
+            require("IMU stream found" in text, f"{run}: the VIO branch was off")
+            require(n_ba == n_kf - 1 and n_kf >= 3, f"{run}: {n_ba} BA runs for {n_kf} keyframes")
+            k = 4 if recipe["slam"].get("use_keylines") else 2
+            require(launches[run] == {"lk_fb": k * APP_FRAMES, "orb": APP_FRAMES},
+                    f"{run}: launches {launches[run]} != {k} LK + 1 ORB per frame")
+            if run == "lines_app_no_clahe":
+                require(np.mean(n_lines[1:]) >= 8, f"{run}: {np.mean(n_lines[1:]):.1f} "
+                                                    "keylines a frame < 8")
+        base = results["lines_app_base"]["ate_mm"]
+        for run in ("lines_app", "lines_app_no_clahe"):
+            ate = results[run]["ate_mm"]
+            print(f"[{run}] ATE {ate:.1f} mm against the base recipe's {base:.1f} mm (bound "
+                  f"max(1.5 x base, 20 mm) = {max(1.5 * base, 20.0):.1f} mm)")
+            require(ate < max(1.5 * base, 20.0), f"{run}: ATE {ate:.1f} mm >= max(1.5 x "
+                                                 f"{base:.1f}, 20) mm")
+
+        opts = load_options(str(recipes["lines_app_no_clahe"]))
+        maps = compute_rectify_maps(rig_raw, models)
+        mx = [torch.from_numpy(m).to(dev) for m in maps[:4]]
+        ck = Path(tmp) / "system.npz"
+        s = create_system(opts.slam, opts.backend, maps.rig_rectified, (480, 752), device=dev)
+        for f in islice(FolderReader(str(root)).frames_prefetch(), APP_CKPT_FRAME):
+            process_frame(s, remap(app.upload(f.left, dev), mx[0], mx[1]),
+                          remap(app.upload(f.right, dev), mx[2], mx[3]),
+                          imu=app.upload_imu(f, dev))
+        checkpoint.save_system(str(ck), s)
+        s2 = checkpoint.load_system(str(ck), opts.slam, opts.backend, maps.rig_rectified,
+                                    (480, 752), device=dev)
+        same, la = systems_identical(s, s2)
+        n_line = sum(n.startswith(("['state'].lines.", "['state'].line_map.",
+                                   "['state'].next_line_id")) for n, _ in la)
+        n_live = int(s.state.lines.valid.sum())
+        n_map = int(s.state.line_map.valid.sum())
+        print(f"[lines_app] checkpoint of the keylines system (CLAHE off) after frame "
+              f"{APP_CKPT_FRAME}: {len(la)} tensors and numbers ({n_line} of the line tables: "
+              f"{n_live} live keylines, {n_map} mapped, next id "
+              f"{int(s.state.next_line_id)}): {'bit-identical' if same else 'DIFFERENT'} after "
+              f"load_system")
+        require(same and n_line == 14 and n_live > 0 and n_map > 0,
+                "lines_app: checkpoint round trip is not bit-identical or lacks the line tables")
+    print(f"[lines_app] phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1342,8 +1661,10 @@ def main() -> int:
         paths["kidnap"] = phase_kidnap(dev)
         app_paths, app_lk_err = phase_app(dev)
         paths.update(app_paths)
-        paths["fulldress"] = phase_fulldress(dev)
-        lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err)
+        paths.update(phase_fulldress(dev))
+        lines_paths, lines_lk_err = phase_lines(dev)
+        paths.update(lines_paths)
+        lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

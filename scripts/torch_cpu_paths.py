@@ -4,6 +4,7 @@
     python3 scripts/torch_cpu_paths.py orbit       # ~6 minutes
     python3 scripts/torch_cpu_paths.py recipe      # ~4 minutes
     python3 scripts/torch_cpu_paths.py orbit-ref   # the reference's Pallas path
+    python3 scripts/torch_cpu_paths.py orbit-ref --workload kidnap   # ~5 minutes
     python3 scripts/torch_cpu_paths.py arc-parity  # ~2 minutes
 
 ``orbit`` runs zenslam_tpu_torch on two rotation-heavy workloads, once on
@@ -33,7 +34,10 @@ script only). It prints the loop gain (keyframe ATE with loops over
 without) beside the reference's f32 path's and the port's kernel
 arithmetic's on the same frames, each run's camera-centre error against
 the truth, and the first frame where the reference's Pallas run and the
-port's part by more than 1 cm.
+port's part by more than 1 cm. ``--workload kidnap`` runs the same three on
+frames 0-40 of the kidnap orbit (before the kidnap at 80) with the kidnap
+test's back end and relocalisation off, and prints each run's per-frame
+centre error, tracked count and pose inliers.
 
 ``arc-parity`` measures, against the reference, the float sensitivities the
 VIO parity tests state tolerances for: on tests/test_torch_vio.py's 12-frame
@@ -118,7 +122,7 @@ def orbit() -> None:
                   f"processed, the kidnap at 80) {s.reloc_debug}", flush=True)
 
 
-def orbit_ref() -> None:
+def orbit_ref(workload: str = "loop") -> None:
     import functools
     import time
 
@@ -137,21 +141,36 @@ def orbit_ref() -> None:
     jstep.lk_ragged_pallas = functools.partial(jstep.lk_ragged_pallas, interpret=True)
     jorb.orb_descriptors_pallas = functools.partial(jorb.orb_descriptors_pallas,
                                                     interpret=True)
-    seq = jmake_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
-                         motion="orbit", pixel_noise=0.01, orbit_radius=1.0)
-    left, right = seq.left, seq.right
     kw = dict(max_keypoints=256, max_landmarks=4096, kf_min_frames=2, kf_min_translation=0.05)
-    backends = {"off": dict(ba_every_kf=False, enable_loop_closure=False),
-                "on": dict(ba_every_kf=False, enable_loop_closure=True, bow_branch=32,
-                           bow_top_k=5, bow_min_score=0.20, bow_min_frame_gap=15,
-                           loop_min_inliers=12)}
+    if workload == "loop":
+        seq = jmake_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
+                             motion="orbit", pixel_noise=0.01, orbit_radius=1.0)
+        backends = {"off": dict(ba_every_kf=False, enable_loop_closure=False),
+                    "on": dict(ba_every_kf=False, enable_loop_closure=True, bow_branch=32,
+                               bow_top_k=5, bow_min_score=0.20, bow_min_frame_gap=15,
+                               loop_min_inliers=12)}
+        n = 64
+    else:
+        # the kidnap orbit's frames 0-40, before the kidnap at 80, with the
+        # kidnap test's back end and relocalisation off
+        seq = jmake_sequence(np.random.default_rng(33), n_frames=112, width=448, height=336,
+                             motion="orbit", pixel_noise=0.01, orbit_radius=1.0,
+                             orbit_revolutions=1.75)
+        backends = {"off": dict(ba_every_kf=False, enable_loop_closure=True,
+                                enable_relocalization=False, bow_levels=2, bow_branch=32,
+                                bow_min_score=0.20, bow_min_frame_gap=100000, bow_top_k=3,
+                                loop_min_inliers=12, vocab_retrain_kfs=8)}
+        n = 41
+    left, right = seq.left[:n], seq.right[:n]
+    R_lw, t_lw = seq.R_lw[:n], seq.t_lw[:n]
     prig = convert.rig_from_numpy(jax.tree.map(np.asarray, seq.rig), "cpu")
     # the true camera centres in the first camera's frame (the SLAM world)
-    c_gt = np.einsum("kij,kj->ki", np.transpose(seq.R_lw, (0, 2, 1)), -seq.t_lw)
-    c_true = (c_gt - c_gt[0]) @ seq.R_lw[0].T
+    c_gt = np.einsum("kij,kj->ki", np.transpose(R_lw, (0, 2, 1)), -t_lw)
+    c_true = (c_gt - c_gt[0]) @ R_lw[0].T
     runs = (("reference Pallas (interpret)", "ref", True), ("reference f32", "ref", False),
             ("port kernel arithmetic", "port", True))
-    centres = {}
+    centres, tracked = {}, {}
+    tag = f"[orbit-ref {workload}]"
     for label, pkg, kernel in runs:
         ates = {}
         for name, bc in backends.items():
@@ -170,28 +189,37 @@ def orbit_ref() -> None:
                 fi, v = s.kf_db.frame_idx.numpy(), s.kf_db.valid.numpy()
                 R, t = s.kf_db.R.numpy()[v], s.kf_db.t.numpy()[v]
             est = np.einsum("kij,kj->ki", np.transpose(R, (0, 2, 1)), -t)
-            gt = np.stack([-seq.R_lw[f].T @ seq.t_lw[f] for f in fi[v]])
+            gt = np.stack([-R_lw[f].T @ t_lw[f] for f in fi[v]])
             ates[name] = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1))))
-            print(f"[orbit-ref] {label}, loops {name}: {len(left)} frames in "
+            print(f"{tag} {label}, loops {name}: {len(left)} frames in "
                   f"{time.time() - t0:.0f} s, keyframe ATE {ates[name]:.5f} m, "
                   f"loops {[d for d in s.loop_debug if d['fired']]}", flush=True)
             if name == "off":
                 Rc, tc = np.asarray(tel.R_cw), np.asarray(tel.t_cw)
                 centres[label] = np.einsum("kij,kj->ki", np.transpose(Rc, (0, 2, 1)), -tc)
+                tracked[label] = np.asarray(tel.n_tracked)
                 err = np.linalg.norm(centres[label] - c_true, axis=-1)
                 lost = np.flatnonzero(err > 0.05)
-                print(f"[orbit-ref] {label}, loops off: centre error vs truth (m) at frames "
-                      f"1, 8, 16, 32, last: {[round(float(err[i]), 4) for i in (1, 8, 16, 32, -1)]}"
-                      f"; first frame over 5 cm: {int(lost[0]) if lost.size else None}", flush=True)
-        print(f"[orbit-ref] {label}: loop gain (ATE on / off) {ates['on'] / ates['off']:.4f}",
-              flush=True)
+                frames = [i for i in (1, 8, 16, 24, 32, 40, 63) if i < n]
+                print(f"{tag} {label}, loops off: centre error vs truth (m) at frames "
+                      f"{frames}: {[round(float(err[i]), 4) for i in frames]}; first frame "
+                      f"over 5 cm: {int(lost[0]) if lost.size else None}; pose_ok false at "
+                      f"{np.flatnonzero(~np.asarray(tel.pose_ok, bool)).tolist()}", flush=True)
+                if workload == "kidnap":
+                    print(f"{tag} {label}: per frame centre error (m) "
+                          f"{np.round(err, 4).tolist()}; n_tracked {tracked[label].tolist()}; "
+                          f"n_pose_inliers {np.asarray(tel.n_pose_inliers).tolist()}",
+                          flush=True)
+        if "on" in ates:
+            print(f"{tag} {label}: loop gain (ATE on / off) {ates['on'] / ates['off']:.4f}",
+                  flush=True)
     a, b = centres[runs[0][0]], centres[runs[2][0]]
     gap = np.linalg.norm(a - b, axis=-1)
     first = np.flatnonzero(gap > 0.01)
-    print(f"[orbit-ref] reference Pallas vs port kernel arithmetic, loops off: first frame "
-          f"apart by > 1 cm: {int(first[0]) if first.size else None}; gap (m) at frames 1, 8, "
-          f"16, 32, last: {[round(float(gap[i]), 4) for i in (1, 8, 16, 32, -1)]}",
-          flush=True)
+    frames = [i for i in (1, 8, 16, 24, 32, 40, 63) if i < n]
+    print(f"{tag} reference Pallas vs port kernel arithmetic, loops off: first frame "
+          f"apart by > 1 cm: {int(first[0]) if first.size else None}; gap (m) at frames "
+          f"{frames}: {[round(float(gap[i]), 4) for i in frames]}", flush=True)
 
 
 def _smooth_signal(T=240, dt=0.005, pad=16):
@@ -379,12 +407,17 @@ def recipe() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("orbit", "recipe", "orbit-ref", "arc-parity"))
+    ap.add_argument("--workload", choices=("loop", "kidnap"), default="loop",
+                    help="orbit-ref: the 64-frame loop orbit or frames 0-40 of the kidnap "
+                         "orbit")
     args = ap.parse_args()
     import torch
 
     torch.set_num_threads(4)
-    {"orbit": orbit, "recipe": recipe, "orbit-ref": orbit_ref,
-     "arc-parity": arc_parity}[args.what]()
+    if args.what == "orbit-ref":
+        orbit_ref(args.workload)
+        return
+    {"orbit": orbit, "recipe": recipe, "arc-parity": arc_parity}[args.what]()
 
 
 if __name__ == "__main__":

@@ -24,8 +24,9 @@ The size: at 256x192 both packages track this sequence with frame-to-frame
 pose noise far above 2 mm (the same in both), so two free runs with
 different random draws cannot agree to 2 mm there; at 384x288 both do.
 
-Also the guards: --viz (item 18), keylines (item 13), ba_solver dist
-(item 17), and no CUDA without --device.
+Also the guards: --viz (item 18), ba_solver dist (item 17), and no CUDA
+without --device; and the keylines recipe (options/euroc_mh_lines.yaml)
+builds a system that steps a frame with keylines.
 """
 
 import contextlib
@@ -212,7 +213,6 @@ def test_checker_passes_and_fails(runs, tmp_path):
 
 @pytest.mark.parametrize("extra,folder,slam,backend,match", [
     (["--viz"], {}, {}, {}, "item 18"),
-    (["--no-imu"], {}, dict(use_keylines=True), {}, "item 13"),
     (["--no-imu"], {}, {}, dict(ba_solver="dist"), "item 17"),
 ])
 def test_unported_paths_raise(datasets, extra, folder, slam, backend, match):
@@ -228,14 +228,28 @@ def test_unported_paths_raise(datasets, extra, folder, slam, backend, match):
 
 
 def test_keylines_recipe_loads_and_system_raises():
+    """The keylines recipe's options build a system (it raised before
+    keylines were ported), and a frame of the corridor with stripes goes
+    through ``process_frame`` on the keyline branch. As shipped (CLAHE on)
+    the detector finds no keyline there, in the reference too: after CLAHE
+    no cell's perpendicular spread passes the 1.6 px gate. With CLAHE off
+    the same options find and track them."""
     from zenslam_tpu_torch.config import load_options
-    from zenslam_tpu_torch.pipeline.system import create_system
+    from zenslam_tpu_torch.pipeline.system import create_system, process_frame
 
     opts = load_options(str(REPO / "options" / "euroc_mh_lines.yaml"))
     assert opts.slam.use_keylines and opts.slam.use_clahe
-    rig = psyn.default_rig(64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        create_system(opts.slam, opts.backend, rig, (64, 64), device="cpu")
+    seq = psyn.make_sequence(np.random.default_rng(11), n_frames=2, width=256, height=192,
+                             motion="strafe", with_lines=True, device="cpu")
+    found = {}
+    for clahe_on in (True, False):
+        s = create_system(opts.slam._replace(use_clahe=clahe_on), opts.backend, seq.rig,
+                          (192, 256), device="cpu")
+        for t in range(2):
+            process_frame(s, torch.from_numpy(seq.left[t]), torch.from_numpy(seq.right[t]))
+        found[clahe_on] = (int(s.state.lines.valid.sum()), int(s.state.next_line_id))
+    assert found[True] == (0, 0)
+    assert found[False][0] >= 4 and found[False][1] >= 4, found
 
 
 def test_app_needs_cuda_unless_told(datasets, monkeypatch):

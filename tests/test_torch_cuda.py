@@ -15,7 +15,11 @@ the kernels share with the plain versions.
 The back end has no hand kernel; its tests hold the port on the card
 against the port on the CPU: dense BA and the pose graph within 1e-4, the
 vocabulary tree identical given the same k-means draws, and a short
-``run_system`` with ``telemetry_lag=3`` on the kernels.
+``run_system`` with ``telemetry_lag=3`` on the kernels. The keyline ops and
+stages (``ops/lines.py``, ``pipeline/lines_step.py``) run on the card with
+no synchronise and agree with the CPU (masks and tables identical, points
+within 1e-3 px / 1e-4 m); ``slam_step`` with keylines launches 4 LK and 1
+ORB per frame.
 """
 
 import numpy as np
@@ -467,3 +471,127 @@ def test_fuse_poses_and_vio_update_on_card_match_cpu_without_syncs(dev):
     for x, y in zip(card[0] + tuple(card[1]), cpu[0] + tuple(cpu[1])):
         assert x.dtype == y.dtype
         assert float((x.cpu().double() - y.double()).abs().max()) <= 1e-5
+
+
+def _to(tree, dev):
+    """A tree of NamedTuples / tuples with its tensors moved to ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(x, dev) for x in tree))
+    if isinstance(tree, tuple):
+        return tuple(_to(x, dev) for x in tree)
+    return tree
+
+
+def _no_syncs(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with the sync debug mode raising on any
+    synchronise."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _lines_seq():
+    return make_sequence(np.random.default_rng(11), n_frames=4, motion="strafe",
+                         with_lines=True, device="cpu")
+
+
+@pytest.mark.cuda
+def test_keyline_detection_on_card_matches_cpu_without_syncs(dev):
+    """detect_keylines (with and without keylines to mask) and
+    keyline_descriptors on the corridor with stripes: masks identical,
+    endpoints within 1e-3 px, >= 99% of descriptor rows identical, no
+    synchronise on the card."""
+    from zenslam_tpu_torch.ops.lines import detect_keylines, keyline_descriptors
+
+    img = torch.from_numpy(_lines_seq().left[0])
+    ex = (torch.zeros((4, 2, 2)), torch.zeros(4, dtype=torch.bool))
+    for masked in (False, True):
+        cpu = detect_keylines(img, *ex, min_length=16.0)
+        card = _no_syncs(detect_keylines, img.to(dev), *(x.to(dev) for x in ex),
+                         min_length=16.0)
+        v = cpu[2]
+        assert torch.equal(card[2].cpu(), v) and int(v.sum()) >= 8
+        assert float((card[0].cpu()[v] - cpu[0][v]).abs().max()) <= 1e-3
+        ex = (cpu[0][:4].clone(), cpu[2][:4].clone())
+    d_cpu = keyline_descriptors(img, cpu[0], cpu[2])
+    d_card = _no_syncs(keyline_descriptors, img.to(dev), cpu[0].to(dev), cpu[2].to(dev))
+    assert (d_card.cpu() == d_cpu).all(-1).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_lines_step_on_card_matches_cpu_without_syncs(dev):
+    """Each lines_step stage on the card against the CPU from the same state
+    (three CPU frames with keylines) and the same endpoint tracks (a fixed
+    stand-in for LK): tables identical, 3D points within 1e-4 m, no
+    synchronise on the card."""
+    from zenslam_tpu_torch.geometry.camera import fundamental_from_rig
+    from zenslam_tpu_torch.pipeline import lines_step as LS
+
+    seq = _lines_seq()
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=2048, use_keylines=True)
+    state = init_state(cfg, (384, 512), device="cpu")
+    for t in range(3):
+        state, _ = slam_step(cfg, seq.rig, state, torch.from_numpy(seq.left[t]),
+                             torch.from_numpy(seq.right[t]))
+    img = torch.from_numpy(seq.left[3])
+
+    def lk(shift):
+        def fb(pts, valid, init_pts=None):
+            p = pts if init_pts is None else init_pts
+            return p + shift, valid.clone(), torch.zeros_like(p[:, 0])
+        return fb
+
+    def stages(st, rig, img, F, shifts):
+        lines, _ = LS.line_temporal_track(cfg, rig, st.lines, st.line_map, lk(shifts[0]),
+                                          st.R_cw, st.t_cw, (384, 512))
+        lines, n_det, next_id = LS.line_detect_topup(cfg, img, lines, st.next_line_id)
+        lines, _ = LS.line_associate(cfg, rig, lines, st.line_map, st.R_cw, st.t_cw)
+        lines, X, tri = LS.line_stereo_triangulate(cfg, rig, lines, lk(shifts[1]), F)
+        corr = LS.line_pose_correspondences(lines, st.line_map)
+        lines, lmap, n_new = LS.line_map_update(cfg, lines, st.line_map, X, tri, st.R_cw,
+                                                st.t_cw, st.frame_idx)
+        return lines, lmap, X, tri, corr, (n_det, next_id, n_new)
+
+    shifts = torch.tensor([[-2.0, 0.0], [-9.0, 0.0]])   # the stand-in tracks' flow
+    cpu = stages(state, seq.rig, img, fundamental_from_rig(seq.rig), shifts)
+    rig = _to(seq.rig, dev)
+    # the step computes F once per frame, outside the keyline stages (its
+    # 3x3 inverse synchronises); the inputs are copied to the card first
+    card = _no_syncs(stages, _to(state, dev), rig, img.to(dev), fundamental_from_rig(rig),
+                     shifts.to(dev))
+    assert int(cpu[0].valid.sum()) >= 8
+    for a, b in zip(card[:2], cpu[:2]):
+        for x, y in zip(a, b):
+            if y.dtype.is_floating_point:
+                assert float((x.cpu() - y).abs().max()) <= 1e-4
+            else:
+                assert torch.equal(x.cpu(), y)
+    assert torch.equal(card[3].cpu(), cpu[3])
+    assert float((card[2].cpu() - cpu[2])[cpu[3]].abs().max()) <= 1e-4
+    assert all(int(x) == int(y) for x, y in zip(card[5], cpu[5]))
+
+
+@pytest.mark.cuda
+def test_slam_step_with_keylines_on_kernels(dev):
+    """Six frames of the corridor with stripes at 512x384 with keylines: 4 LK
+    (keypoints and keyline endpoints, temporal and stereo) and 1 ORB launch
+    per frame, poses ok, keylines tracked and mapped."""
+    seq = make_sequence(np.random.default_rng(11), n_frames=6, motion="strafe",
+                        with_lines=True, device_render=True, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=2048, use_keylines=True)
+    state = init_state(cfg, (384, 512), device=dev)
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    oks, n_lines = [], []
+    for t in range(6):
+        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+        oks.append(bool(tel.pose_ok))
+        n_lines.append(int(tel.n_lines))
+    assert lk_cuda.lk_ragged.launches - lk0 == 24
+    assert orb_cuda.orb_steered_brief.launches - orb0 == 6
+    assert all(oks[1:]) and min(n_lines[1:]) >= 8, n_lines
+    assert int(tel.line_map_size) >= 4

@@ -166,8 +166,7 @@ def test_convert_round_trip(reference_run):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_keylines", True), ("descriptor", "sift"),
-    ("detector", "harris"), ("describe_refresh", 4)])
+    ("descriptor", "sift"), ("detector", "harris"), ("describe_refresh", 4)])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_state(SlamConfig(**{field: value}), (64, 64), device="cpu")

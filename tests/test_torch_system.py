@@ -326,7 +326,8 @@ def test_no_module_of_the_port_imports_jax():
             "zenslam_tpu_torch.io.dataset", "zenslam_tpu_torch.io.checkpoint",
             "zenslam_tpu_torch.native.loader", "zenslam_tpu_torch.imu.preintegration",
             "zenslam_tpu_torch.imu.continuous", "zenslam_tpu_torch.imu.gravity",
-            "zenslam_tpu_torch.imu.predictors", "zenslam_tpu_torch.estimation.fusion"
+            "zenslam_tpu_torch.imu.predictors", "zenslam_tpu_torch.estimation.fusion",
+            "zenslam_tpu_torch.ops.lines", "zenslam_tpu_torch.pipeline.lines_step"
             } <= set(names)
     code = (
         "import importlib, sys\n"

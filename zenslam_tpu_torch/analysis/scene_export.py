@@ -41,8 +41,11 @@ def collect_scene(system, est_positions=None, gt_positions=None):
     order = np.argsort(_np(db.frame_idx)[kv])
     kf_R = _np(db.R)[kv][order]
     kf_t = _np(db.t)[kv][order]
-    # 3D keyline segments: the port has no keyline map yet (ROADMAP item 13)
-    lines = np.zeros((0, 2, 3), np.float32)
+    # 3D keyline segments of the line map (empty when keylines are off or
+    # the state has no line map)
+    lm3 = getattr(system.state, "line_map", None)
+    lines = (_np(lm3.xyz)[_np(lm3.valid)] if lm3 is not None
+             else np.zeros((0, 2, 3), np.float32))
     return {
         "points": xyz.astype(np.float32),
         "colors": np.clip(col, 0.0, 1.0).astype(np.float32),

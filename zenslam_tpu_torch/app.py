@@ -3,6 +3,7 @@
     python -m zenslam_tpu_torch.app --options-file options.yaml
     python -m zenslam_tpu_torch.app --options-file options.yaml --device cpu
     python -m zenslam_tpu_torch.app --options-file options.yaml --no-imu
+    python -m zenslam_tpu_torch.app --options-file options/euroc_mh_lines.yaml
     python -m zenslam_tpu_torch.app --version / --help
 
 Runs the full keyframe SLAM system over the dataset the options name:
@@ -13,7 +14,8 @@ lagged telemetry) -> telemetry CSV, ``trajectory.csv``, the final pose,
 ATE/RPE against groundtruth, the scene export, and the effective options
 written back. When the folder carries an IMU stream (``folder.imu_file``)
 and ``--no-imu`` is absent, each frame's padded IMU slice goes up with it
-(one pinned buffer) and the VIO branch runs. Runs on CUDA unless ``--device
+(one pinned buffer) and the VIO branch runs; ``slam.use_keylines`` (the
+keylines recipe) runs the keyline branch. Runs on CUDA unless ``--device
 cpu`` is given; with no CUDA device and no ``--device`` it raises.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md item:

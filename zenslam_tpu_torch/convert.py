@@ -10,8 +10,9 @@ numpy array (done by the caller; nothing here imports JAX). Conversions:
 - the reference pads ragged levels to TPU tile alignment: each level is
   cropped to its true size ``[:h, :w]``;
 - the JAX PRNG key has no counterpart: the state gets ``seed`` and its
-  frame counter as ``rng_step``. Keyline tables are dropped; the VIO state
-  (gravity ring, 3-pose history, velocity) carries over both ways.
+  frame counter as ``rng_step``. The keyline tables (``LineTable``,
+  ``Line3dMap``, ``next_line_id``) and the VIO state (gravity ring, 3-pose
+  history, velocity) carry over both ways.
 
 The back end's tables (``KeyframeDB``, ``BowDatabase``, ``Vocabulary``,
 ``PoseGraph``, ``BAProblem``) convert field by field (``table_from_numpy``,
@@ -34,7 +35,8 @@ from zenslam_tpu_torch.backend.map_archive import LandmarkArchive
 from zenslam_tpu_torch.geometry.camera import PinholeCamera, StereoRig
 from zenslam_tpu_torch.ops.lk import ragged_level_sizes
 from zenslam_tpu_torch.pipeline.state import (
-    FeatureTable, LandmarkMap, MotionModel, SlamConfig, SlamState, VioState, init_vio)
+    FeatureTable, LandmarkMap, Line3dMap, LineTable, MotionModel, SlamConfig, SlamState,
+    VioState, init_vio)
 from zenslam_tpu_torch.pipeline.system import (
     BackendConfig, HostCopy, KfSnap, SlamSystem)
 
@@ -89,10 +91,12 @@ def state_from_numpy(tree, device, image_shape=None, seed: int = 0,
         image_shape = np.asarray(levels[0]).shape
     sizes = ragged_level_sizes(int(image_shape[0]), int(image_shape[1]), len(levels))
     scalars = ("R_cw", "t_cw", "last_kf_R", "last_kf_t", "frames_since_kf",
-               "frame_idx", "next_track_id")
+               "frame_idx", "next_track_id", "next_line_id")
     return SlamState(
         features=_table(FeatureTable, tree.features, device),
         lmap=_table(LandmarkMap, tree.lmap, device),
+        lines=_table(LineTable, tree.lines, device),
+        line_map=_table(Line3dMap, tree.line_map, device),
         motion=_table(MotionModel, tree.motion, device),
         **{k: tensor_from_numpy(getattr(tree, k), device) for k in scalars},
         prev_pyr_l=tuple(tensor_from_numpy(np.asarray(p)[:h, :w], device, pyramid_dtype)
@@ -122,7 +126,9 @@ def state_to_numpy(state: SlamState) -> SlamState:
     out = _np(state)
     return out._replace(
         features=out.features._replace(desc=out.features.desc.view(np.uint32)),
-        lmap=out.lmap._replace(desc=out.lmap.desc.view(np.uint32)))
+        lmap=out.lmap._replace(desc=out.lmap.desc.view(np.uint32)),
+        lines=out.lines._replace(desc=out.lines.desc.view(np.uint32)),
+        line_map=out.line_map._replace(desc=out.line_map.desc.view(np.uint32)))
 
 
 def backend_config_from_dict(d) -> BackendConfig:

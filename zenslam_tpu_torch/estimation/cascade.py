@@ -25,7 +25,9 @@ from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse, so3_orthono
 
 
 class CascadeNoise(NamedTuple):
-    """Gumbel draws for the four RANSAC estimators, each (iters, n)."""
+    """Gumbel draws for the four RANSAC estimators, each (iters, width):
+    the two PnPs' width is the cam0 problem's (keypoints plus keyline
+    endpoints with keylines on), the others' the keypoint count."""
 
     pnp0: torch.Tensor
     pnp1: torch.Tensor
@@ -34,11 +36,15 @@ class CascadeNoise(NamedTuple):
 
 
 def draw_cascade_noise(generator: torch.Generator, n: int, pnp_iters: int,
-                       rigid_iters: int, essential_iters: int, device) -> CascadeNoise:
-    """All of one frame's RANSAC noise from one generator, in a fixed order."""
+                       rigid_iters: int, essential_iters: int, device,
+                       n_pnp: int | None = None) -> CascadeNoise:
+    """All of one frame's RANSAC noise from one generator, in a fixed order
+    (pnp0, pnp1, rigid, essential). ``n_pnp``: the PnPs' width (default
+    ``n``)."""
+    n_pnp = n if n_pnp is None else n_pnp
     return CascadeNoise(
-        pnp0=gumbel(generator, (pnp_iters, n), device),
-        pnp1=gumbel(generator, (pnp_iters, n), device),
+        pnp0=gumbel(generator, (pnp_iters, n_pnp), device),
+        pnp1=gumbel(generator, (pnp_iters, n_pnp), device),
         rigid=gumbel(generator, (rigid_iters, n), device),
         essential=gumbel(generator, (essential_iters, n), device))
 

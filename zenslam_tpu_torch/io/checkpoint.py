@@ -10,7 +10,8 @@ counterpart of ``zenslam_tpu/io/checkpoint.py``.
   checked against the template.
 - ``save_system`` / ``load_system``: the live ``SlamSystem``: state (with
   the ``rng_seed`` / ``rng_step`` pair the per-frame generator is seeded
-  from, and the VIO state: velocity, gravity ring, 3-pose history),
+  from, the keyline table, line map and ``next_line_id``, and the VIO
+  state: velocity, gravity ring, 3-pose history),
   keyframe DB, BoW database and vocabulary, pose-graph edges, host
   counters, the telemetry queue of a lagged system and the landmark archive.
   A deferred spill and a deferred loop verdict are resolved before writing,

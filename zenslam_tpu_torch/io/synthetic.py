@@ -60,9 +60,22 @@ class PlaneWorld(NamedTuple):
     tex_scale: float       # texture pixels per metre
 
 
-def make_corridor_world(rng: np.random.Generator, tex_size: int = 1024) -> PlaneWorld:
-    """End wall (z=6), floor (y=+1.5) and ceiling (y=-1.2)."""
+def make_corridor_world(rng: np.random.Generator, tex_size: int = 1024,
+                        with_lines: bool = False) -> PlaneWorld:
+    """End wall (z=6), floor (y=+1.5) and ceiling (y=-1.2). with_lines:
+    six 4-texel black or white stripes across each plane's texture (plank
+    seams, wall edges), drawn from ``rng`` after the textures; they project
+    as true 3D line segments (the keyline workload)."""
     textures = np.stack([smooth_texture(rng, tex_size, tex_size) for _ in range(3)])
+    if with_lines:
+        for tex in textures:
+            for _ in range(6):
+                pos = int(rng.uniform(40, tex_size - 40))
+                val = 0.0 if rng.random() < 0.5 else 1.0
+                if rng.random() < 0.5:
+                    tex[pos:pos + 4, :] = val
+                else:
+                    tex[:, pos:pos + 4] = val
     normals = np.array([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
     points = np.array([[0, 0, 6.0], [0, 1.5, 0], [0, -1.2, 0]], np.float32)
     offsets = -np.einsum("pi,pi->p", normals, points).astype(np.float32)
@@ -268,7 +281,7 @@ def make_imu(pose_fn, timestamps: np.ndarray, samples_per_frame: int = 10,
 
 def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512,
                   height: int = 384, motion: str = "strafe", dt: float = 0.05,
-                  speed: float = 0.4, with_imu: bool = False,
+                  speed: float = 0.4, with_lines: bool = False, with_imu: bool = False,
                   imu_samples_per_frame: int = 10, gravity_w=(0.0, 9.81, 0.0),
                   device_render: bool = False, pixel_noise: float = 0.0,
                   orbit_radius: float = 1.5, orbit_revolutions: float = 1.0,
@@ -277,14 +290,16 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
     translation), 'forward' (z), 'arc' (translation + yaw) or 'orbit'
     (``orbit_revolutions`` turns of radius ``orbit_radius`` inside the closed
     room, looking outward: it revisits its starting view, the loop-closure
-    workload). pixel_noise: additive Gaussian image noise σ, drawn from
-    ``rng`` after the world, left then right per frame. With device_render
-    the frames are rendered on ``device`` and returned as (T, H, W) tensors
-    there; the host renderer returns numpy arrays. The rig lives on
-    ``device``."""
+    workload). with_lines: stripes on the corridor's planes
+    (``make_corridor_world``; the orbit's room has none). pixel_noise:
+    additive Gaussian image noise σ, drawn from ``rng`` after the world, left
+    then right per frame. With device_render the frames are rendered on
+    ``device`` and returned as (T, H, W) tensors there; the host renderer
+    returns numpy arrays. The rig lives on ``device``."""
     if motion not in ("strafe", "forward", "arc", "orbit"):
         raise NotImplementedError(f"motion {motion!r} is not ported (strafe, forward, arc, orbit)")
-    world = make_room_world(rng) if motion == "orbit" else make_corridor_world(rng)
+    world = (make_room_world(rng) if motion == "orbit"
+             else make_corridor_world(rng, with_lines=with_lines))
     rig = default_rig(width, height, device)
     dev = rig.R_rl.device
     R_rl = rig.R_rl.double().cpu().numpy()
@@ -490,7 +505,8 @@ def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
                             models=("radtan", "radtan"), n_frames: int = 12,
                             motion: str = "strafe", dt: float = 0.1, speed: float = 0.25,
                             pixel_noise: float = 0.0, device_render: bool = False,
-                            with_imu: bool = False) -> SyntheticSequence:
+                            with_imu: bool = False,
+                            with_lines: bool = False) -> SyntheticSequence:
     """A stereo sequence rendered through a real (distorted) camchain rig,
     e.g. ``options/euroc_camchain.yaml``: the images are in the distorted
     geometry, so an app run with ``folder.calibration_file`` set to the same
@@ -502,8 +518,9 @@ def make_distorted_sequence(rng: np.random.Generator, rig_raw: StereoRig,
     samples a frame), in the rig's IMU frame (body = the IMU that
     ``T_cam_imu``, i.e. ``rig_raw.R_ci``/``t_ci``, places against the left
     camera, so the lever arm is in the accelerometer's reading), drawing
-    nothing from ``rng``."""
-    world = make_corridor_world(rng)
+    nothing from ``rng``. ``with_lines``: the corridor's stripes
+    (``make_corridor_world``), the keyline workload."""
+    world = make_corridor_world(rng, with_lines=with_lines)
     H, W = int(rig_raw.left.height), int(rig_raw.left.width)
     rays_l = distorted_camera_rays(rig_raw.left, models[0])
     rays_r = distorted_camera_rays(rig_raw.right, models[1])

@@ -7,11 +7,13 @@
 state lives on CUDA and False on the CPU, and the pyramid is stored in bf16
 on the kernel path, f32 otherwise.
 
-The state carries no keyline tables: keylines are not ported
-(``check_supported``). It carries the reference's ``VioState`` (velocity,
-gravity estimate and ring, biases, 3-pose history) as ``vio``. The
-reference's JAX PRNG key becomes ``rng_seed`` and ``rng_step`` (plain ints):
-frame k's draws come from a ``torch.Generator`` seeded from that pair.
+The state carries the reference's keyline tables (``LineTable``,
+``Line3dMap``, ``next_line_id``) whether or not ``use_keylines`` is set, so
+its tree mirrors the reference's for ``convert.py`` and checkpoints, and
+its ``VioState`` (velocity, gravity estimate and ring, biases, 3-pose
+history) as ``vio``. The reference's JAX PRNG key becomes ``rng_seed`` and
+``rng_step`` (plain ints): frame k's draws come from a ``torch.Generator``
+seeded from that pair.
 """
 
 from __future__ import annotations
@@ -92,9 +94,6 @@ def check_supported(cfg: SlamConfig) -> None:
     """Raise NotImplementedError for configurations this port does not run
     yet, naming the ROADMAP.md item that will port them."""
     todo = []
-    if cfg.use_keylines:
-        todo.append("use_keylines (Queue 1 item 13: keylines, ops/lines.py + "
-                    "pipeline/lines_step.py)")
     if cfg.descriptor != "orb":
         todo.append(f"descriptor={cfg.descriptor!r} (Queue 1 item 12: other detector/"
                     "descriptor families)")
@@ -119,6 +118,29 @@ class FeatureTable(NamedTuple):
     track_id: torch.Tensor   # (N,) int32 stable feature id
     age: torch.Tensor        # (N,) int32 frames tracked
     valid: torch.Tensor      # (N,) bool
+
+
+class LineTable(NamedTuple):
+    """Left-canonical per-frame keyline table (capacity L = max_keylines)."""
+
+    ep: torch.Tensor         # (L, 2, 2) float32 endpoints in the left image
+    ep_r: torch.Tensor       # (L, 2, 2) float32 right-image endpoints
+    stereo_ok: torch.Tensor  # (L,) bool
+    desc: torch.Tensor       # (L, 8) int32 packed line-BRIEF (uint32 bit patterns)
+    lm_idx: torch.Tensor     # (L,) int32 slot into Line3dMap, -1 = none
+    track_id: torch.Tensor   # (L,) int32
+    age: torch.Tensor        # (L,) int32
+    valid: torch.Tensor      # (L,) bool
+
+
+class Line3dMap(NamedTuple):
+    """World 3D line-segment table (capacity M = max_line_landmarks)."""
+
+    xyz: torch.Tensor        # (M, 2, 3) float32 world endpoint pair
+    desc: torch.Tensor       # (M, 8) int32
+    valid: torch.Tensor      # (M,) bool
+    last_seen: torch.Tensor  # (M,) int32
+    n_obs: torch.Tensor      # (M,) int32
 
 
 class LandmarkMap(NamedTuple):
@@ -179,6 +201,8 @@ def init_vio(gravity_capacity: int = 64, device=None) -> VioState:
 class SlamState(NamedTuple):
     features: FeatureTable
     lmap: LandmarkMap
+    lines: LineTable
+    line_map: Line3dMap
     R_cw: torch.Tensor
     t_cw: torch.Tensor
     motion: MotionModel
@@ -187,6 +211,7 @@ class SlamState(NamedTuple):
     frames_since_kf: torch.Tensor  # () int32
     frame_idx: torch.Tensor        # () int32
     next_track_id: torch.Tensor    # () int32
+    next_line_id: torch.Tensor     # () int32
     prev_pyr_l: tuple              # ragged levels at true size
     rng_seed: int                  # per-state seed
     rng_step: int                  # frames drawn so far
@@ -231,6 +256,30 @@ def unpack_telemetry(vec) -> FrameTelemetry:
     v = vec.numpy() if isinstance(vec, torch.Tensor) else np.asarray(vec)
     k = _TEL_N_SCALARS
     return FrameTelemetry(*v[:k], R_cw=v[k:k + 9].reshape(3, 3), t_cw=v[k + 9:k + 12])
+
+
+def empty_lines(cfg: SlamConfig, device=None) -> LineTable:
+    n = cfg.max_keylines
+    f32, i32 = torch.float32, torch.int32
+    return LineTable(
+        ep=torch.zeros((n, 2, 2), dtype=f32, device=device),
+        ep_r=torch.zeros((n, 2, 2), dtype=f32, device=device),
+        stereo_ok=torch.zeros(n, dtype=torch.bool, device=device),
+        desc=torch.zeros((n, 8), dtype=i32, device=device),
+        lm_idx=torch.full((n,), -1, dtype=i32, device=device),
+        track_id=torch.full((n,), -1, dtype=i32, device=device),
+        age=torch.zeros(n, dtype=i32, device=device),
+        valid=torch.zeros(n, dtype=torch.bool, device=device))
+
+
+def empty_line_map(cfg: SlamConfig, device=None) -> Line3dMap:
+    m = cfg.max_line_landmarks
+    return Line3dMap(
+        xyz=torch.zeros((m, 2, 3), dtype=torch.float32, device=device),
+        desc=torch.zeros((m, 8), dtype=torch.int32, device=device),
+        valid=torch.zeros(m, dtype=torch.bool, device=device),
+        last_seen=torch.full((m,), -1, dtype=torch.int32, device=device),
+        n_obs=torch.zeros(m, dtype=torch.int32, device=device))
 
 
 def resolve_use_kernels(cfg: SlamConfig, device) -> bool:
@@ -290,12 +339,13 @@ def init_state(cfg: SlamConfig, image_shape, seed: int = 0, device=None) -> Slam
             xyz=z(m, 3), desc=z(m, 8, dtype=i32), valid=z(m, dtype=torch.bool),
             last_seen=full((m,), -1), n_obs=z(m, dtype=i32),
             generation=z(m, dtype=i32), color=z(m)),
+        lines=empty_lines(cfg, dev), line_map=empty_line_map(cfg, dev),
         R_cw=eye.clone(), t_cw=z(3),
         motion=MotionModel(vel=z(3), acc=z(3), vel_ang=z(3), acc_ang=z(3),
                            n_updates=z(dtype=i32)),
         last_kf_R=eye.clone(), last_kf_t=z(3),
         frames_since_kf=z(dtype=i32), frame_idx=z(dtype=i32),
-        next_track_id=z(dtype=i32),
+        next_track_id=z(dtype=i32), next_line_id=z(dtype=i32),
         prev_pyr_l=empty_ragged_pyramid(H, W, cfg.pyramid_levels,
                                         pyramid_dtype(cfg, dev), device=dev),
         rng_seed=int(seed), rng_step=0,

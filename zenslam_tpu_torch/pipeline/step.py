@@ -4,15 +4,18 @@ slam_step`` under the configurations ``check_supported`` accepts.
 Stages, in the reference's order: pyramid pair → predict (IMU
 preintegration and the inertial prediction when an IMU batch is given) →
 temporal KLT → FAST top-up → ORB describe → associate → temporal rematch →
-stereo KLT and triangulation → pose cascade (fused when
-``use_pose_fusion``) → map update → keyframe decision → motion update → VIO
-update (velocity, gravity) → telemetry.
+stereo KLT and triangulation → keylines (``use_keylines``: endpoint KLT,
+detection, description, association, stereo; ``lines_step.py``) → pose
+cascade (keyline endpoints folded into the cam0 PnP; fused when
+``use_pose_fusion``) → map update → line map update → keyframe decision →
+motion update → VIO update (velocity, gravity) → telemetry.
 
-On the kernel path (``resolve_use_kernels``) the two KLT stages run
-``ops/lk_cuda.lk_ragged`` and the describe stage ``ops/orb_cuda``; otherwise
-the f32 gather fallbacks the reference runs off-TPU. The reference's
-``.at[].set(mode="drop")`` scatters become explicit masks: dropped rows go to
-a spare row past the end of the table (``frontend/tables.scatter_drop``).
+On the kernel path (``resolve_use_kernels``) the KLT stages (two, four with
+keylines) run ``ops/lk_cuda.lk_ragged`` and the describe stage
+``ops/orb_cuda``; otherwise the f32 gather fallbacks the reference runs
+off-TPU. The reference's ``.at[].set(mode="drop")`` scatters become explicit
+masks: dropped rows go to a spare row past the end of the table
+(``frontend/tables.scatter_drop``).
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ from zenslam_tpu_torch.imu.predictors import inertial_predict_pose, propagate_ve
 from zenslam_tpu_torch.imu.preintegration import ImuNoise, preintegrate
 from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
 from zenslam_tpu_torch.ops.image import clahe
+from zenslam_tpu_torch.ops.lines import keyline_descriptors
 from zenslam_tpu_torch.ops.lk import (
     build_ragged_pyramid_pair, lk_forward_backward, ragged_to_stacked)
 from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
 from zenslam_tpu_torch.ops.match import epipolar_gate, match_descriptors, radius_gate
 from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
+from zenslam_tpu_torch.pipeline import lines_step as LS
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
     check_supported, frame_generator, pyramid_dtype, resolve_use_kernels)
@@ -351,6 +356,27 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     feats, X_cam, tri_ok = _stereo_and_triangulate(cfg, use_k, rig, pyr_l, pyr_r,
                                                    feats, F_rig)
 
+    # ---- KEYLINES (track / detect / describe / associate / stereo) ---------
+    lines, line_map, next_line_id = state.lines, state.line_map, state.next_line_id
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    n_lines = n_line_tri = line_map_size = zero
+    if cfg.use_keylines:
+        def lk_temporal(pts, v, init_pts=None):
+            return _lk_fb(cfg, use_k, state.prev_pyr_l, pyr_l, pts, v, init_pts=init_pts)
+
+        def lk_stereo(pts, v, init_pts=None):
+            return _lk_fb(cfg, use_k, pyr_l, pyr_r, pts, v, init_pts=init_pts)
+
+        lines, _ = LS.line_temporal_track(cfg, rig, lines, line_map, lk_temporal,
+                                          R_pred, t_pred, tuple(pyr_l[0].shape))
+        lines, _, next_line_id = LS.line_detect_topup(cfg, img_l, lines, next_line_id)
+        lines = lines._replace(desc=keyline_descriptors(img_l, lines.ep, lines.valid))
+        lines, _ = LS.line_associate(cfg, rig, lines, line_map, R_pred, t_pred)
+        lines, X_line_ep, line_tri_ok = LS.line_stereo_triangulate(cfg, rig, lines,
+                                                                   lk_stereo, F_rig)
+        n_lines = lines.valid.sum()
+        n_line_tri = line_tri_ok.sum()
+
     # ---- ESTIMATE (cascade) ------------------------------------------------
     lmap = state.lmap
     M = lmap.valid.shape[0]
@@ -361,6 +387,14 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     Rwp, twp = se3_inverse(R_pred, t_pred)
     X_w_cur = se3_apply(Rwp, twp, X_cam)
     corr3d = has_lm & tri_ok
+    # keyline endpoints' 3D-2D pairs join the cam0 problem
+    X0_est, uv0_est, v0_est = X_w_lm, feats.xy, corr0
+    if cfg.use_keylines:
+        Xl, uvl, vl = LS.line_pose_correspondences(lines, line_map)
+        X0_est = torch.cat([X0_est, Xl])
+        uv0_est = torch.cat([uv0_est, uvl])
+        v0_est = torch.cat([v0_est, vl])
+    n_pnp = X0_est.shape[0]
     ess_kwargs = {}
     if cfg.use_essential_fallback:
         prev_lm_xyz = lmap.xyz[prev_lm_idx.clamp(min=0).long()]
@@ -372,13 +406,13 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
             essential_threshold=cfg.essential_threshold)
     if noise is None:
         noise = draw_cascade_noise(frame_generator(state, dev), N, cfg.pnp_iters,
-                                   cfg.rigid_iters, cfg.essential_iters, dev)
-    expect = ((cfg.pnp_iters, N), (cfg.pnp_iters, N), (cfg.rigid_iters, N),
+                                   cfg.rigid_iters, cfg.essential_iters, dev, n_pnp=n_pnp)
+    expect = ((cfg.pnp_iters, n_pnp), (cfg.pnp_iters, n_pnp), (cfg.rigid_iters, N),
               (cfg.essential_iters, N))
     if tuple(tuple(x.shape) for x in noise) != expect:
         raise ValueError(f"noise shapes {[tuple(x.shape) for x in noise]} != {expect}")
     est = estimate_pose_cascade(
-        noise, rig, X_w_lm, feats.xy, corr0, X_w_lm, feats.uv_r, corr1,
+        noise, rig, X0_est, uv0_est, v0_est, X_w_lm, feats.uv_r, corr1,
         X_w_cur, X_w_lm, corr3d, R_pred, t_pred,
         pnp_threshold=cfg.pnp_threshold, rigid_threshold=cfg.rigid_threshold,
         min_inliers=cfg.min_inliers, fuse=cfg.use_pose_fusion, pred_sigma_p=pred_sigma_p,
@@ -424,6 +458,12 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         lmap = lmap._replace(xyz=_scatter(lmap.xyz, torch.where(refine, feats.lm_idx, M),
                                           (1.0 - a) * old_xyz + a * X_w_new))
 
+    # ---- LINE MAP UPDATE ---------------------------------------------------
+    if cfg.use_keylines:
+        lines, line_map, _ = LS.line_map_update(cfg, lines, line_map, X_line_ep, line_tri_ok,
+                                                R_cw, t_cw, state.frame_idx)
+        line_map_size = line_map.valid.sum()
+
     # ---- KEYFRAME ----------------------------------------------------------
     is_kf = _keyframe_decision(cfg, state, R_cw, t_cw, est.n_inliers, tracked_ratio)
     last_kf_R = torch.where(is_kf, R_cw, state.last_kf_R)
@@ -449,16 +489,16 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
                           R_cw, t_cw, est.ok)
 
     new_state = SlamState(
-        features=feats, lmap=lmap, R_cw=R_cw, t_cw=t_cw, motion=motion,
-        last_kf_R=last_kf_R, last_kf_t=last_kf_t, frames_since_kf=frames_since_kf,
+        features=feats, lmap=lmap, lines=lines, line_map=line_map, R_cw=R_cw, t_cw=t_cw,
+        motion=motion, last_kf_R=last_kf_R, last_kf_t=last_kf_t, frames_since_kf=frames_since_kf,
         frame_idx=(state.frame_idx + 1).to(_I32), next_track_id=next_track_id,
+        next_line_id=next_line_id,
         prev_pyr_l=pyr_l, rng_seed=state.rng_seed, rng_step=state.rng_step + 1, vio=vio)
-    zero = torch.zeros((), dtype=_I32, device=dev)
     telem = FrameTelemetry(
         n_tracked=n_tracked, n_detected=n_detected,
         n_stereo=(feats.stereo_ok & feats.valid).sum(), n_triangulated=tri_ok.sum(),
         n_pose_inliers=est.n_inliers, pose_method=est.method, pose_ok=est.ok,
         tracked_ratio=tracked_ratio, is_keyframe=is_kf, map_size=lmap.valid.sum(),
-        n_lines=zero, n_line_triangulated=zero, line_map_size=zero,
+        n_lines=n_lines, n_line_triangulated=n_line_tri, line_map_size=line_map_size,
         R_cw=R_cw, t_cw=t_cw)
     return new_state, telem
