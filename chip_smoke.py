@@ -105,7 +105,28 @@ Phases (each one fatal on failure):
    max(1.5 x the base's, 20 mm), >= 8 keylines a frame with CLAHE off; and
    a checkpoint of the CLAHE-off keylines system after frame APP_CKPT_FRAME
    (its line tables populated) loaded back bit-identical;
-12. a ``kernels`` JSON line (``launches`` is the system phase's count,
+12. families: (a) ``slam_step`` on the slice phase's frames (the same 8
+   warm-up frames, the implicit synchronises of which are reported by
+   line, then the measured frames with the counters at 0) for each run of
+   FAMILIES, (harris, sift), (fast, sift), (dog, freak), (fast, freak),
+   (dog, orb) and (fast, orb, describe_refresh=4), beside the default
+   config: 2 LK launches per frame and 1 ORB for the ORB runs, pose_ok >=
+   0.9, ATE < 0.05 m, and for the SIFT and FREAK runs with the FAST or
+   Harris detector mean tracked > 0.5 x and ATE < max(2 x, 0.02 m) of the
+   default run's (the bars of ``tests/test_float_family.py`` and
+   ``tests/test_detector_matrix.py``); no implicit synchronise in
+   ``ops/harris.py``, ``dog.py``, ``sift.py``, ``freak.py`` or the float
+   matcher and LSH of ``ops/match.py``; matmuls in full f32; the refresh
+   run's rows computed per frame, and the ORB kernel's ``needs`` rows on
+   frame REFRESH_CHECK_FRAME bit-identical to a full pass; what each
+   family adds to one step from its run's state before frame
+   FAMILY_COST_FRAME (``torch.profiler`` kernels and busy ms, host ms over
+   10 alternating rounds); (b) ``TestFloatPathLoopClosure``'s workload
+   (96-frame 320x240 orbit, seed 21) through ``run_system`` with SIFT
+   (Harris) on the kernel path (2 LK and 0 ORB launches per frame), and
+   SIFT and ORB (FAST) on the f32 path that test runs: a loop closes
+   through the LSH crossing, SIFT's recall >= 0.5 x ORB's > 0;
+13. a ``kernels`` JSON line (``launches`` is the system phase's count,
    ``launches_by_path`` every path's), the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -157,6 +178,16 @@ FULLDRESS_DIST = [-0.12, 0.035, 0.0006, -0.0004]   # e2e_fulldress.py's radtan
 HARD_SLAM = {"use_clahe": True, "use_pose_fusion": True, "use_keylines": True}  # its --hard
 LINES_FRAMES = 40    # lines phase: slam_step with keylines on a 1024x1024 strafe
 LINES_WARMUP = 8
+FAMILIES = {         # families phase: run name -> SlamConfig fields
+    "harris_sift": dict(detector="harris", descriptor="sift"),
+    "fast_sift": dict(descriptor="sift"),
+    "dog_freak": dict(detector="dog", descriptor="freak"),
+    "fast_freak": dict(descriptor="freak"),
+    "dog_orb": dict(detector="dog"),
+    "fast_orb_refresh4": dict(describe_refresh=4),
+}
+FAMILY_COST_FRAME = 30    # families phase: the step whose cost is measured
+REFRESH_CHECK_FRAME = 20  # families phase: the step whose needs rows are checked
 SIZE = 1024
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -1316,22 +1347,20 @@ def phase_fulldress(dev):
 
 
 @contextlib.contextmanager
-def recorded_lk_calls(calls: list):
-    """Inside the block, ``slam_step``'s LK kernel calls are appended to
+def recorded_calls(module, name: str, calls: list):
+    """Inside the block, the calls of ``module.name`` are appended to
     ``calls`` as (args, kwargs)."""
-    from zenslam_tpu_torch.pipeline import step
-
-    inner = step.lk_ragged
+    inner = getattr(module, name)
 
     def recorded(*args, **kwargs):
         calls.append((args, kwargs))
         return inner(*args, **kwargs)
 
-    step.lk_ragged = recorded
+    setattr(module, name, recorded)
     try:
         yield calls
     finally:
-        step.lk_ragged = inner
+        setattr(module, name, inner)
 
 
 def corridor_plane_share(line_map) -> tuple:
@@ -1412,8 +1441,10 @@ def phase_lines(dev):
 
     # the LK kernel against its plain version on the last frame's endpoint
     # batches, with the arguments the step passed
+    from zenslam_tpu_torch.pipeline import step
+
     calls = []
-    with recorded_lk_calls(calls):
+    with recorded_calls(step, "lk_ragged", calls):
         slam_step(cfg_on, seq.rig, before_last, seq.left[-1], seq.right[-1])
     torch.cuda.synchronize()
     L2 = 2 * cfg_on.max_keylines
@@ -1636,6 +1667,215 @@ def phase_kidnap(dev):
     return dict(launches)
 
 
+def family_run(cfg, seq, dev) -> dict:
+    """``slam_step`` over the slice phase's frames: N_WARMUP warm-up frames
+    (their implicit synchronises recorded), then every launch counter at 0
+    and the measured frames timed up to a synchronise. Returns the run's
+    numbers, the states before FAMILY_COST_FRAME and REFRESH_CHECK_FRAME,
+    and the rows under the refresh mask per measured frame."""
+    import torch
+
+    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
+    from zenslam_tpu_torch.pipeline import init_state, slam_step
+
+    state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+    tels, before, rows = [], {}, []
+    with implicit_syncs() as records:
+        for t in range(N_WARMUP):
+            state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            tels.append(tel)
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in range(N_WARMUP, N_FRAMES):
+        if t in (FAMILY_COST_FRAME, REFRESH_CHECK_FRAME):
+            before[t] = state
+        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+        tels.append(tel)
+        f = state.features   # ages and validity as the describe stage saw them
+        rows.append((f.valid & (f.age % max(cfg.describe_refresh, 1) == 0)).sum())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    R = torch.stack([x.R_cw for x in tels]).cpu().numpy()
+    tt = torch.stack([x.t_cw for x in tels]).cpu().numpy()
+    require(np.isfinite(R).all() and np.isfinite(tt).all(), "families: non-finite pose")
+    gt = camera_positions(seq.R_lw[:N_FRAMES], seq.t_lw[:N_FRAMES])
+    n = N_FRAMES - N_WARMUP
+    return dict(launches=launches, ms=dt / n * 1e3, records=records, before=before,
+                ate=ate_rmse(camera_positions(R, tt), gt),
+                pose_ok=float(torch.stack([x.pose_ok for x in tels[1:]]).float().mean()),
+                tracked=float(torch.stack([x.n_tracked for x in tels[N_WARMUP:]])
+                              .float().mean()),
+                rows=torch.stack(rows).cpu().numpy())
+
+
+def new_module_syncs(records) -> Counter:
+    """The synchronise records inside the families' op modules and the float
+    matcher and LSH functions of ``ops/match.py``."""
+    import inspect
+
+    from zenslam_tpu_torch.ops import match
+
+    spans = []
+    for fn in (match.l2_matrix, match.match_descriptors_float, match._planes,
+               match.lsh_binarize):
+        lines, first = inspect.getsourcelines(fn)
+        spans.append((first, first + len(lines)))
+    files = ("ops/harris.py", "ops/dog.py", "ops/sift.py", "ops/freak.py")
+    return sync_sites([w for w in records if w.filename.endswith(files) or (
+        w.filename.endswith("ops/match.py") and any(a <= w.lineno < b for a, b in spans))])
+
+
+def check_refresh_needs(cfg, seq, state, k: int) -> tuple:
+    """Step frame k from ``state`` with the step's ORB describe calls
+    recorded: the kernel's ``needs`` rows against a full pass of the kernel
+    on the same inputs, bit for bit. Returns (rows computed, valid rows)."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import slam_step, step
+
+    calls = []
+    with recorded_calls(step, "orb_descriptors_kernel", calls):
+        slam_step(cfg, seq.rig, state, seq.left[k], seq.right[k])
+    require(len(calls) == 1, f"families: {len(calls)} ORB describe calls in a refresh step")
+    (img, xy, valid), kwargs = calls[0]
+    needs = kwargs.get("needs")
+    require(needs is not None, "families: the refresh step passed no needs mask")
+    need = needs & valid
+    part = step.orb_descriptors_kernel(img, xy, valid, needs=needs)
+    full = step.orb_descriptors_kernel(img, xy, valid)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p[need], f[need]) for p, f in zip(part, full))
+    require(same, f"families: frame {k}'s needs rows differ from a full pass")
+    return int(need.sum()), int(valid.sum())
+
+
+def family_orbit(dev) -> dict:
+    """``tests/test_place_recognition.py::TestFloatPathLoopClosure``'s
+    workload through ``run_system``: SIFT (Harris detector) on the kernel
+    path, then SIFT and ORB (FAST) on the f32 path, the one that test runs
+    (on this rotation-heavy orbit the kernel path drifts, as the
+    reference's Pallas path does: ROADMAP.md Queue 3): loops through the
+    LSH crossing and SIFT's recall beside ORB's."""
+    import torch
+
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, run_system
+
+    t0 = time.perf_counter()
+    seq = make_sequence(np.random.default_rng(21), n_frames=96, width=320, height=240,
+                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0,
+                        orbit_revolutions=1.5, device=dev)
+    bcfg = BackendConfig(ba_every_kf=False, enable_loop_closure=True, bow_levels=2,
+                         bow_branch=32, bow_min_score=0.15, bow_min_frame_gap=30, bow_top_k=3,
+                         loop_min_inliers=12, vocab_retrain_kfs=8)
+    out = {}
+    for desc, kernels in (("sift", True), ("sift", False), ("orb", False)):
+        cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
+                         kf_min_translation=0.05, descriptor=desc,
+                         detector="harris" if desc == "sift" else "fast",
+                         use_pallas_lk=None if kernels else False)
+        s = create_system(cfg, bcfg, seq.rig, (240, 320))
+        reset_launches()
+        t1 = time.perf_counter()
+        run_system(s, seq.left, seq.right)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        eligible = [d for d in s.loop_debug if d["frame"] >= 96 / 1.5 * 1.1]
+        recall = sum(d["fired"] for d in eligible) / max(len(eligible), 1)
+        name = f"{desc}_{'kernels' if kernels else 'f32'}"
+        out[name] = (s, recall, read_launches())
+        print(f"[families] orbit {name}: 96 frames in {dt:.2f} s, keyframes {s.n_keyframes}, "
+              f"loop closures {s.n_loop_closures}, recall {recall:.3f} over {len(eligible)} "
+              f"eligible gates, keyframe ATE {kf_ate(s.kf_db, seq):.5f} m, "
+              f"launches {out[name][2]}")
+    (_, _, l_kern), (s_sift, r_sift, _), (_, r_orb, _) = out.values()
+    require(l_kern == {"lk_fb": 192, "orb": 0}, f"families: SIFT orbit launches {l_kern}")
+    require(s_sift.n_loop_closures >= 1, "families: no loop closed through the LSH crossing")
+    require(r_orb > 0 and r_sift >= 0.5 * r_orb,
+            f"families: SIFT recall {r_sift:.3f} < 0.5 x ORB's {r_orb:.3f}")
+    print(f"[families] orbit phase {time.perf_counter() - t0:.1f} s")
+    return {"families_orbit_sift": l_kern}
+
+
+def phase_families(seq, dev):
+    """The other detector and descriptor families (see the module
+    docstring). Returns {path: launches}."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.pipeline import SlamConfig, slam_step
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
+    print(f"[families] matmul allow_tf32 {tf32[0]}, float32 matmul precision {tf32[1]!r} "
+          f"(cudnn allow_tf32 {tf32[2]}; no convolution on this path)")
+    require(not tf32[0] and tf32[1] == "highest", f"families: matmuls not in full f32 {tf32}")
+    n = N_FRAMES - N_WARMUP
+    cfgs = {"default": SlamConfig(), **{k: SlamConfig(**v) for k, v in FAMILIES.items()}}
+    runs = {name: family_run(cfg, seq, dev) for name, cfg in cfgs.items()}
+    base = runs["default"]
+    line = card_line()
+    paths = {}
+    for name, r in runs.items():
+        cfg = cfgs[name]
+        syncs = sync_sites(r["records"])
+        n_sync = sum(syncs.values())
+        print(f"[families] {name}: {n} frames {r['ms']:.2f} ms/frame on {line}; pose_ok "
+              f"{r['pose_ok']:.3f}, ATE {r['ate']:.5f} m, mean tracked {r['tracked']:.1f}, "
+              f"launches {r['launches']}; implicit synchronises over the {N_WARMUP} warm-up "
+              f"frames {n_sync}: " + ", ".join(f"{k} x{v}" for k, v in syncs.most_common(8)))
+        orb = n if cfg.descriptor == "orb" else 0
+        require(r["launches"] == {"lk_fb": 2 * n, "orb": orb},
+                f"families {name}: launches {r['launches']} != 2 LK + {orb // n} ORB per frame")
+        require(r["pose_ok"] >= 0.9, f"families {name}: pose_ok {r['pose_ok']:.3f} < 0.9")
+        require(r["ate"] < 0.05, f"families {name}: ATE {r['ate']:.4f} m >= 0.05 m")
+        if cfg.descriptor in ("sift", "freak") and cfg.detector != "dog":
+            # the reference tests' bars for a descriptor beside FAST/ORB; a DoG
+            # run has the bars of test_detector_matrix.py's DoG cases above
+            require(r["tracked"] > 0.5 * base["tracked"],
+                    f"families {name}: mean tracked {r['tracked']:.1f} <= 0.5 x the default's")
+            require(r["ate"] < max(2 * base["ate"], 0.02),
+                    f"families {name}: ATE {r['ate']:.4f} m >= max(2 x default, 0.02 m)")
+        inside = new_module_syncs(r["records"])
+        require(not inside, f"families {name}: implicit synchronises in the new modules {inside}")
+        if name != "default":
+            paths[f"families_{name}"] = r["launches"]
+    print("[families] implicit synchronises in ops/harris.py, dog.py, sift.py, freak.py and "
+          "the float matcher and LSH of ops/match.py over every run's warm-up: none")
+
+    ref = runs["fast_orb_refresh4"]
+    rows = ref["rows"]
+    k = REFRESH_CHECK_FRAME
+    n_need, n_valid = check_refresh_needs(cfgs["fast_orb_refresh4"], seq, ref["before"][k], k)
+    print(f"[families] describe_refresh=4: rows computed per frame min/median/max "
+          f"{int(rows.min())}/{float(np.median(rows)):.0f}/{int(rows.max())} of "
+          f"{SlamConfig().max_keypoints} slots (mean {float(rows.mean()):.1f}); frame {k}: the "
+          f"kernel's {n_need} needs rows (of {n_valid} valid) bit-identical to a full pass; "
+          f"ATE {ref['ate']:.5f} m beside {base['ate']:.5f} m at refresh 1")
+
+    k = FAMILY_COST_FRAME
+    cost, by_op = step_cost({name: functools.partial(slam_step, cfgs[name], seq.rig,
+                                                     runs[name]["before"][k], seq.left[k],
+                                                     seq.right[k]) for name in cfgs})
+    kd, busy_d, ms_d = cost["default"]
+    for name in FAMILIES:
+        kn, busy, ms = cost[name]
+        added = by_op[name]
+        added.subtract(by_op["default"])
+        print(f"[families] {name}: one slam_step on frame {k} from its run's state before it: "
+              f"device kernels and copies {kn} (default {kd}, torch.profiler), device busy "
+              f"{busy:.3f} ms (default {busy_d:.3f}), host {ms:.2f} ms (default {ms_d:.2f}; "
+              f"medians of 10 alternating rounds); device ms it adds by operator (top 5): "
+              + ", ".join(f"{op[:40]} {v:.3f}" for op, v in added.most_common(5)))
+    paths.update(family_orbit(dev))
+    print(f"[families] phase {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="DIR",
@@ -1664,6 +1904,7 @@ def main() -> int:
         paths.update(phase_fulldress(dev))
         lines_paths, lines_lk_err = phase_lines(dev)
         paths.update(lines_paths)
+        paths.update(phase_families(seq, dev))
         lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

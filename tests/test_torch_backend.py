@@ -203,7 +203,7 @@ def _kf_inputs(rng, n_kf, N, M):
 def test_keyframe_db_exact():
     rng = np.random.default_rng(3)
     K, N, M = 4, 24, 64
-    jdb, pdb = jkf.kf_db_init(K, N), keyframes.kf_db_init(K, N)
+    jdb, pdb = jkf.kf_db_init(K, N), keyframes.kf_db_init(K, N, device="cpu")
     for a in _kf_inputs(rng, 6, N, M):          # 6 adds into 4 slots: ring eviction
         fi = a.pop("frame_idx")
         pos = ("R", "t", "kp_xy", "kp_lm", "kp_valid", "kp_desc")
@@ -402,7 +402,7 @@ def test_bow_database_query_matches_reference(corpus):
                                n_words=16, iters=4)
     pc = _t(np.asarray(jc))
     F = 6
-    jdb, pdb = jbow.bow_db_init(F, 16), bow.bow_db_init(F, 16)
+    jdb, pdb = jbow.bow_db_init(F, 16), bow.bow_db_init(F, 16, device="cpu")
     frames = [0, 10, 20, 30, 40, 50, 60, 70]            # 8 adds into 6 slots
     for r, f in enumerate(frames):
         sl = slice(60 * r, 60 * r + 60)

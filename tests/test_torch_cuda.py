@@ -19,7 +19,11 @@ vocabulary tree identical given the same k-means draws, and a short
 stages (``ops/lines.py``, ``pipeline/lines_step.py``) run on the card with
 no synchronise and agree with the CPU (masks and tables identical, points
 within 1e-3 px / 1e-4 m); ``slam_step`` with keylines launches 4 LK and 1
-ORB per frame.
+ORB per frame. The other detector and descriptor families (Harris, DoG,
+SIFT, FREAK, the float matcher and the LSH codes) agree with the CPU with
+no synchronise on the card, and ``describe_refresh=4`` launches 2 LK and 1
+ORB per frame, the ORB kernel's ``needs`` rows bit-identical to a full pass;
+the app runs a family on the card by default.
 """
 
 import numpy as np
@@ -254,13 +258,14 @@ def _rot(rng, sigma):
     return so3_exp(torch.from_numpy(rng.normal(0, sigma, 3).astype(np.float32)))
 
 
-def _ba_problem(seed=7, n_kf=6, n_lm=240):
-    """A 6-keyframe stereo window on the CPU: every landmark seen left and
-    right by every keyframe with 0.3 px noise, poses (but the first) and
-    landmarks perturbed."""
+def _ba_problem(dev, seed=7, n_kf=6, n_lm=240):
+    """A 6-keyframe stereo window on ``dev`` (drawn on the CPU): every
+    landmark seen left and right by every keyframe with 0.3 px noise, poses
+    (but the first) and landmarks perturbed."""
     rng = np.random.default_rng(seed)
     p = ba.make_ba_problem(8, 256, 2 * n_kf * n_lm, 400.0, 400.0, 320.0, 240.0,
-                           t_rl=[-0.11, 0.0, 0.0])
+                           t_rl=[-0.11, 0.0, 0.0], device=dev)
+    p = _to(p, "cpu")      # drawn on the CPU, returned on dev
     X = torch.from_numpy(np.stack([rng.uniform(-3, 3, n_lm), rng.uniform(-2, 2, n_lm),
                                    rng.uniform(4, 10, n_lm)], -1).astype(np.float32))
     R, t, kf, lm, uv, cam = p.R.clone(), p.t.clone(), [], [], [], []
@@ -282,11 +287,11 @@ def _ba_problem(seed=7, n_kf=6, n_lm=240):
     xyz = p.xyz.clone()
     xyz[:n_lm] = X + torch.from_numpy(rng.normal(0, 0.05, X.shape).astype(np.float32))
     i32 = torch.int32
-    return p._replace(R=R, t=t, kf_valid=torch.arange(8) < n_kf, kf_fixed=torch.arange(8) < 1,
-                      xyz=xyz, lm_valid=torch.arange(256) < n_lm,
-                      obs_kf=torch.tensor(kf, dtype=i32), obs_lm=torch.tensor(lm, dtype=i32),
-                      obs_uv=torch.cat(uv), obs_cam=torch.tensor(cam, dtype=i32),
-                      obs_valid=torch.ones(len(kf), dtype=torch.bool))
+    return _to(p._replace(R=R, t=t, kf_valid=torch.arange(8) < n_kf, kf_fixed=torch.arange(8) < 1,
+                          xyz=xyz, lm_valid=torch.arange(256) < n_lm,
+                          obs_kf=torch.tensor(kf, dtype=i32), obs_lm=torch.tensor(lm, dtype=i32),
+                          obs_uv=torch.cat(uv), obs_cam=torch.tensor(cam, dtype=i32),
+                          obs_valid=torch.ones(len(kf), dtype=torch.bool)), dev)
 
 
 def _to(tree, dev):
@@ -317,9 +322,9 @@ def _ring_graph(n=6, seed=3):
 
 @pytest.mark.cuda
 def test_dense_ba_and_pose_graph_on_card_match_cpu(dev):
-    p = _ba_problem()
-    cpu = ba.bundle_adjust(p, iterations=3)
-    gpu = ba.bundle_adjust(_to(p, dev), iterations=3)
+    p = _ba_problem(dev)
+    cpu = ba.bundle_adjust(_to(p, "cpu"), iterations=3)
+    gpu = ba.bundle_adjust(p, iterations=3)
     for k in ("R", "t"):
         assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4, k
     rel = (gpu["xyz"].cpu() - cpu["xyz"]).norm(dim=-1) / cpu["xyz"].norm(dim=-1).clamp(min=1.0)
@@ -595,3 +600,113 @@ def test_slam_step_with_keylines_on_kernels(dev):
     assert orb_cuda.orb_steered_brief.launches - orb0 == 6
     assert all(oks[1:]) and min(n_lines[1:]) >= 8, n_lines
     assert int(tel.line_map_size) >= 4
+
+
+@pytest.mark.cuda
+def test_family_ops_on_card_match_cpu_without_syncs(dev):
+    """Harris and DoG score planes (within 1e-5 of the plane's maximum, masks
+    identical on >= 99.9% of pixels), SIFT (1e-4), FREAK (>= 99% of rows
+    identical), the L2 matrix (1e-4 relative) with the float matcher (>= 99%
+    of matches identical) and the LSH codes (>= 99.9% of bits) on the card
+    against the CPU, with no synchronise on the card (tables copied on a
+    first call, as the step's first frame does)."""
+    from zenslam_tpu_torch.ops import dog, freak, harris, match, sift
+
+    img = torch.from_numpy(make_sequence(np.random.default_rng(21), n_frames=1, width=320,
+                                         height=240, motion="arc", device="cpu").left[0])
+    g = torch.Generator().manual_seed(4)
+    xy = torch.rand((256, 2), generator=g) * torch.tensor([304.0, 224.0]) + 8.0
+    valid = torch.rand(256, generator=g) > 0.1
+    card = (img.to(dev), xy.to(dev), valid.to(dev))
+    sift.sift_descriptors(*card), freak.freak_descriptors(*card)
+    match.lsh_binarize(torch.zeros((1, 128), device=dev))
+    for fn in (lambda i: harris.harris_score_multiscale(i, threshold=1e-7),
+               lambda i: dog.dog_score(i, threshold=0.008)):
+        cpu, gpu = fn(img), _no_syncs(fn, card[0]).cpu()
+        assert (gpu - cpu).abs().max() <= 1e-5 * cpu.abs().max()
+        assert ((gpu > 0) == (cpu > 0)).float().mean() >= 0.999 and int((cpu > 0).sum()) > 50
+    d_cpu = sift.sift_descriptors(img, xy, valid)
+    d_gpu = _no_syncs(sift.sift_descriptors, *card)
+    assert (d_gpu.cpu() - d_cpu).abs().max() <= 1e-4
+    f_cpu, _ = freak.freak_descriptors(img, xy, valid)
+    f_gpu, _ = _no_syncs(freak.freak_descriptors, *card)
+    assert (f_gpu.cpu() == f_cpu).all(-1).float().mean() >= 0.99
+    a, b = d_cpu[:128], d_cpu[torch.randperm(128, generator=g)] + 0.02 * torch.randn(
+        (128, 128), generator=g)
+    D_cpu = match.l2_matrix(a, b)
+    D_gpu = _no_syncs(match.l2_matrix, a.to(dev), b.to(dev)).cpu()
+    assert ((D_gpu - D_cpu).abs() <= 1e-4 * D_cpu.abs().clamp(min=1e-2)).all()
+    va, vb = valid[:128], valid[128:]
+    m_cpu = match.match_descriptors_float(a, b, va, vb, max_distance=0.55)
+    m_gpu = _no_syncs(match.match_descriptors_float, a.to(dev), b.to(dev), va.to(dev),
+                      vb.to(dev), max_distance=0.55)
+    assert (m_gpu[0].cpu() == m_cpu[0]).float().mean() >= 0.99 and int(m_cpu[2].sum()) > 20
+    c_cpu = match.lsh_binarize(d_cpu)
+    c_gpu = _no_syncs(match.lsh_binarize, d_cpu.to(dev)).cpu()
+    bits = lambda w: np.unpackbits(w.numpy().view(np.uint8), axis=-1)  # noqa: E731
+    assert (bits(c_gpu) == bits(c_cpu)).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_describe_refresh_step_on_kernels(dev):
+    """Six frames at 512x384 with describe_refresh=4: 2 LK and 1 ORB launch
+    per frame, poses ok; on the last frame's table (ages staggered) the
+    kernel's rows under the refresh mask are bit-identical to a full pass,
+    and the merge keeps the other valid rows' descriptors."""
+    from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
+    from zenslam_tpu_torch.pipeline import step as pstep
+
+    seq = make_sequence(np.random.default_rng(11), n_frames=6, motion="strafe",
+                        device_render=True, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=2048, describe_refresh=4)
+    state = init_state(cfg, (384, 512), device=dev)
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    oks = []
+    for t in range(6):
+        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+        oks.append(bool(tel.pose_ok))
+    assert lk_cuda.lk_ragged.launches - lk0 == 12
+    assert orb_cuda.orb_steered_brief.launches - orb0 == 6
+    assert all(oks[1:])
+    # the tracks here all start on frame 0; stagger their ages as a longer
+    # run does, so the refresh mask takes some valid rows and not others
+    feats = state.features
+    feats = feats._replace(age=torch.arange(feats.age.shape[0], dtype=torch.int32,
+                                            device=dev) % 7)
+    needs = feats.valid & (feats.age % 4 == 0)
+    assert 0 < int(needs.sum()) < int(feats.valid.sum())
+    part, _ = orb_descriptors_kernel(seq.left[5], feats.xy, feats.valid, needs=needs)
+    full, _ = orb_descriptors_kernel(seq.left[5], feats.xy, feats.valid)
+    assert torch.equal(part[needs], full[needs])
+    merged = pstep._describe(cfg, True, seq.left[5], feats)
+    keep = feats.valid & ~needs
+    assert torch.equal(merged[needs], full[needs]) and torch.equal(merged[keep], feats.desc[keep])
+    assert not merged[~feats.valid].any()
+
+
+@pytest.mark.cuda
+def test_app_runs_a_family_on_card(dev, tmp_path):
+    """``python -m zenslam_tpu_torch.app`` on the card by default with an
+    options file whose ``slam:`` section picks (dog, freak) and
+    describe_refresh=4 on a 6-frame exported folder: no ORB launch, 2 LK
+    launches a frame, a trajectory row per frame."""
+    import yaml
+
+    from zenslam_tpu_torch.app import main
+    from zenslam_tpu_torch.io.synthetic import export_dataset
+
+    seq = make_sequence(np.random.default_rng(5), n_frames=6, width=256, height=192,
+                        motion="strafe", device="cpu")
+    export_dataset(seq, str(tmp_path / "data"))
+    opts = {"folder": dict(root=str(tmp_path / "data"), output=str(tmp_path / "out"),
+                           groundtruth_file=str(tmp_path / "data" / "groundtruth.csv")),
+            "slam": dict(max_keypoints=128, max_landmarks=1024, kf_min_frames=2,
+                         detector="dog", descriptor="freak", describe_refresh=4)}
+    path = tmp_path / "options.yaml"
+    path.write_text(yaml.safe_dump(opts))
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    assert main(["--options-file", str(path), "--no-scene"]) == 0
+    assert lk_cuda.lk_ragged.launches - lk0 == 12
+    assert orb_cuda.orb_steered_brief.launches == orb0
+    rows = (tmp_path / "out" / "trajectory.csv").read_text().strip().splitlines()
+    assert len(rows) >= 6

@@ -26,8 +26,12 @@ from zenslam_tpu.pipeline import SlamConfig as JaxConfig
 from zenslam_tpu.pipeline import init_state as jax_init_state
 from zenslam_tpu.pipeline.step import slam_step as jax_slam_step
 from zenslam_tpu_torch import convert
+from zenslam_tpu_torch.backend.ba import make_ba_problem
+from zenslam_tpu_torch.backend.bow import bow_db_init
+from zenslam_tpu_torch.backend.keyframes import kf_db_init
 from zenslam_tpu_torch.estimation.cascade import CascadeNoise
 from zenslam_tpu_torch.io import synthetic as port_synthetic
+from zenslam_tpu_torch.ops.lk import empty_ragged_pyramid
 from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
 
 torch.set_num_threads(2)
@@ -165,11 +169,16 @@ def test_convert_round_trip(reference_run):
     assert all(p.dtype == torch.bfloat16 for p in bf.prev_pyr_l)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("descriptor", "sift"), ("detector", "harris"), ("describe_refresh", 4)])
-def test_unported_config_raises(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_state(SlamConfig(**{field: value}), (64, 64), device="cpu")
+@pytest.mark.parametrize("field,value,desc_shape,desc_dtype", [
+    ("descriptor", "sift", (128,), torch.float32), ("detector", "harris", (8,), torch.int32),
+    ("describe_refresh", 4, (8,), torch.int32)])
+def test_unported_config_raises(field, value, desc_shape, desc_dtype):
+    # the other families are ported: their state builds with its descriptors
+    cfg = SlamConfig(max_keypoints=32, max_landmarks=64, **{field: value})
+    state = init_state(cfg, (64, 64), device="cpu")
+    for desc, n in ((state.features.desc, 32), (state.lmap.desc, 64)):
+        assert desc.shape == (n,) + desc_shape and desc.dtype == desc_dtype
+    assert state.lines.desc.dtype == torch.int32
 
 
 def test_init_state_needs_cuda_unless_told(monkeypatch):
@@ -177,6 +186,16 @@ def test_init_state_needs_cuda_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_state(SlamConfig(), (64, 64))
     assert init_state(SlamConfig(), (64, 64), device="cpu").R_cw.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: empty_ragged_pyramid(64, 64, 2), lambda: make_ba_problem(4, 8, 16, 1, 1, 0, 0),
+    lambda: kf_db_init(4, 8), lambda: bow_db_init(4, 16)],
+    ids=["empty_ragged_pyramid", "make_ba_problem", "kf_db_init", "bow_db_init"])
+def test_constructors_need_cuda_unless_told(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_config_converts_with_same_fields(jcfg):
@@ -193,7 +212,9 @@ def test_port_imports_without_jax():
         "import zenslam_tpu_torch, zenslam_tpu_torch.convert\n"
         "import zenslam_tpu_torch.pipeline.step, zenslam_tpu_torch.io.synthetic\n"
         "import zenslam_tpu_torch.eval.metrics, zenslam_tpu_torch.ops.lk_cuda\n"
-        "import zenslam_tpu_torch.ops.orb_cuda\n"
+        "import zenslam_tpu_torch.ops.orb_cuda, zenslam_tpu_torch.ops.harris\n"
+        "import zenslam_tpu_torch.ops.dog, zenslam_tpu_torch.ops.sift\n"
+        "import zenslam_tpu_torch.ops.freak\n"
         "new = [m for m in set(sys.modules) - before if sys.modules[m] is not None]\n"
         "assert not [m for m in new if m.split('.')[0] in ('jax', 'zenslam_tpu')]\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

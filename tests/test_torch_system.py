@@ -289,13 +289,22 @@ def test_runner_modes_and_demo(small, capsys):
 
 @pytest.mark.parametrize("bcfg,cfg,match", [
     (dict(ba_solver="dist"), {}, "item 17"),
-    ({}, dict(descriptor="sift"), "item 12"),
+    ({}, dict(descriptor="sift"), None),
 ])
 def test_unported_settings_raise(bcfg, cfg, match):
     rig = port_synthetic.default_rig(64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig, (64, 64),
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig,
+                                  (64, 64), device="cpu")
+        return
+    # the SIFT family is ported: float tables live, binary codes in the DB
+    s = psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig, (64, 64),
                               device="cpu")
+    assert s.state.features.desc.shape == (512, 128)
+    assert s.state.features.desc.dtype == torch.float32
+    assert s.archive.desc.dtype == np.float32 and s.archive.desc.shape[1:] == (128,)
+    assert s.kf_db.kp_desc.dtype == torch.int32 and s.kf_db.kp_desc.shape[-1] == 8
 
 
 def test_create_system_needs_cuda_unless_told(monkeypatch):

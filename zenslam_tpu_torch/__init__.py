@@ -10,8 +10,9 @@ find, and keeps its public signatures. It imports neither ``jax`` nor
 Conventions fixed once for the whole package:
 
 - state tables are NamedTuples of tensors on one explicit device;
-- packed ORB descriptors are ``(N, 8) torch.int32`` holding the same bit
-  patterns as the reference's ``uint32`` words;
+- packed binary descriptors (ORB, FREAK, keylines, the SIFT family's LSH
+  codes) are ``(N, 8) torch.int32`` holding the same bit patterns as the
+  reference's ``uint32`` words; SIFT descriptors are ``(N, 128)`` float32;
 - randomness comes from ``torch.Generator``s seeded from a per-state seed and
   frame counter, and every random draw can be injected instead;
 - the two TPU kernels (pyramidal LK, ORB) are CUDA C++ under ``csrc/``, built

@@ -15,7 +15,9 @@ ATE/RPE against groundtruth, the scene export, and the effective options
 written back. When the folder carries an IMU stream (``folder.imu_file``)
 and ``--no-imu`` is absent, each frame's padded IMU slice goes up with it
 (one pinned buffer) and the VIO branch runs; ``slam.use_keylines`` (the
-keylines recipe) runs the keyline branch. Runs on CUDA unless ``--device
+keylines recipe) runs the keyline branch; ``slam.detector`` (``fast``,
+``harris``, ``dog``), ``slam.descriptor`` (``orb``, ``sift``, ``freak``) and
+``slam.describe_refresh`` pick the front end's families. Runs on CUDA unless ``--device
 cpu`` is given; with no CUDA device and no ``--device`` it raises.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP.md item:
@@ -69,7 +71,7 @@ def main(argv=None):
     from zenslam_tpu_torch.io.synthetic import default_rig
     from zenslam_tpu_torch.io.telemetry import TelemetryWriter
     from zenslam_tpu_torch.ops.image import remap
-    from zenslam_tpu_torch.pipeline.state import check_supported, resolve_device
+    from zenslam_tpu_torch.pipeline.state import resolve_device
     from zenslam_tpu_torch.pipeline.system import (
         check_backend_supported, create_system, flush_pipeline, process_frame)
 
@@ -80,7 +82,6 @@ def main(argv=None):
     if args.no_backend:
         opts.backend.ba_every_kf = False
         opts.backend.enable_loop_closure = False
-    check_supported(opts.slam)
     check_backend_supported(opts.slam, opts.backend)
 
     reader = FolderReader(

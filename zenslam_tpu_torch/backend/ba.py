@@ -21,6 +21,7 @@ import torch
 
 from zenslam_tpu_torch.geometry.lie import so3_exp, so3_hat
 from zenslam_tpu_torch.geometry.polar import inv_spd
+from zenslam_tpu_torch.utils.device import resolve_device
 
 
 class BAProblem(NamedTuple):
@@ -50,9 +51,11 @@ class BAProblem(NamedTuple):
 
 
 def make_ba_problem(K, M, O, fx, fy, cx, cy, fx_r=None, fy_r=None, cx_r=None,
-                    cy_r=None, R_rl=None, t_rl=None, device="cpu"):
-    """Empty fixed-capacity problem. Defaults: right camera = left camera,
-    identity extrinsics (obs_cam == 0 everywhere is monocular BA)."""
+                    cy_r=None, R_rl=None, t_rl=None, device=None):
+    """Empty fixed-capacity problem on ``device`` (default CUDA, raising when
+    absent). Defaults: right camera = left camera, identity extrinsics
+    (obs_cam == 0 everywhere is monocular BA)."""
+    device = resolve_device(device)
     f32 = torch.float32
 
     def s(v, default):

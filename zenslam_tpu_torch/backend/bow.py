@@ -23,6 +23,7 @@ import torch
 
 from zenslam_tpu_torch.backend.keyframes import _set_row
 from zenslam_tpu_torch.ops.match import unpack_bits
+from zenslam_tpu_torch.utils.device import resolve_device
 
 
 class Vocabulary(NamedTuple):
@@ -186,7 +187,9 @@ class BowDatabase(NamedTuple):
     doc_freq: torch.Tensor   # (n_words,) documents containing each word
 
 
-def bow_db_init(max_frames: int, n_words: int, device="cpu") -> BowDatabase:
+def bow_db_init(max_frames: int, n_words: int, device=None) -> BowDatabase:
+    """Empty BoW database on ``device`` (default CUDA, raising when absent)."""
+    device = resolve_device(device)
     return BowDatabase(
         hist=torch.zeros((max_frames, n_words), dtype=torch.float32, device=device),
         frame_idx=torch.full((max_frames,), -1, dtype=torch.int32, device=device),

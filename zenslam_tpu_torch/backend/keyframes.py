@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from zenslam_tpu_torch.backend.ba import BAProblem
+from zenslam_tpu_torch.utils.device import resolve_device
 
 
 class KeyframeDB(NamedTuple):
@@ -32,7 +33,9 @@ class KeyframeDB(NamedTuple):
     next_slot: torch.Tensor  # () int32 ring pointer
 
 
-def kf_db_init(max_keyframes: int, max_keypoints: int, device="cpu") -> KeyframeDB:
+def kf_db_init(max_keyframes: int, max_keypoints: int, device=None) -> KeyframeDB:
+    """Empty keyframe ring on ``device`` (default CUDA, raising when absent)."""
+    device = resolve_device(device)
     K, N = max_keyframes, max_keypoints
     f32, i32, b = torch.float32, torch.int32, torch.bool
 

@@ -8,7 +8,8 @@ rows dormant. Dormant landmarks that project into the current frustum are
 re-inserted into the live table (``reload_into_map``) through the
 front end's LRU allocator, with fresh generations.
 
-The archive is host numpy with the reference's dtypes (uint32 descriptors);
+The archive is host numpy with the reference's dtypes (uint32 descriptor
+words, float32 for the SIFT family);
 it is this package's own copy of that host code.
 """
 
@@ -42,14 +43,18 @@ def reload_into_map(lmap, xyz, desc, valid, frame_idx, color=None, protect_recen
 
 
 def _pack_live(lmap) -> torch.Tensor:
-    """The live table as ONE (M, 6 + 8) int32 matrix: valid, generation,
-    xyz and colour as f32 bit patterns, then the descriptor words. An
-    integer carrier keeps descriptor words that happen to be NaN patterns
-    intact; its bytes equal the reference's uint32 matrix."""
+    """The live table as ONE (M, 6 + D) int32 matrix: valid, generation,
+    xyz and colour as f32 bit patterns, then the descriptor (int32 words, or
+    the f32 bit patterns of a float family's descriptor). An integer carrier
+    keeps descriptor words that happen to be NaN patterns intact; its bytes
+    equal the reference's uint32 matrix."""
     f32 = torch.float32
     meta = torch.cat([lmap.valid.to(f32)[:, None], lmap.generation.to(f32)[:, None],
                       lmap.xyz.to(f32), lmap.color.to(f32)[:, None]], dim=1)
-    return torch.cat([meta.view(torch.int32), lmap.desc.reshape(lmap.desc.shape[0], -1)], dim=1)
+    desc = lmap.desc
+    if desc.is_floating_point():
+        desc = desc.view(torch.int32)
+    return torch.cat([meta.view(torch.int32), desc.reshape(desc.shape[0], -1)], dim=1)
 
 
 class LandmarkArchive:
@@ -173,7 +178,8 @@ class LandmarkArchive:
         valid_b = np.concatenate([np.ones(len(cand), bool), np.zeros(pad, bool)])
         new_lmap, slot, placed = reload_into_map(
             lmap, torch.from_numpy(xyz_b).to(dev),
-            torch.from_numpy(np.ascontiguousarray(desc_b).view(np.int32)).to(dev),
+            torch.from_numpy(desc_b.view(np.int32) if desc_b.dtype == np.uint32
+                             else desc_b).to(dev),
             torch.from_numpy(valid_b).to(dev),
             torch.full((), int(frame_idx), dtype=torch.int32, device=dev),
             color=torch.from_numpy(col_b).to(dev))

@@ -5,6 +5,7 @@ The input trees are the reference's NamedTuples after every leaf was made a
 numpy array (done by the caller; nothing here imports JAX). Conversions:
 
 - uint32 descriptor words become int32 tensors with the same bit patterns;
+  the SIFT family's (N, 128) float32 descriptors stay float32 both ways;
 - bfloat16 pyramid levels (``ml_dtypes.bfloat16`` numpy arrays, which
   ``torch.from_numpy`` refuses) go through a uint16 view;
 - the reference pads ragged levels to TPU tile alignment: each level is
@@ -120,15 +121,22 @@ def _np(x):
     return x
 
 
+def _words(desc: np.ndarray) -> np.ndarray:
+    """int32 descriptor words as the reference's uint32; float (SIFT)
+    descriptors unchanged."""
+    return desc.view(np.uint32) if desc.dtype == np.int32 else desc
+
+
 def state_to_numpy(state: SlamState) -> SlamState:
-    """The state with every tensor made a numpy array (descriptors as
-    uint32, bf16 levels widened exactly to float32)."""
+    """The state with every tensor made a numpy array (descriptor words as
+    uint32, float descriptors as float32, bf16 levels widened exactly to
+    float32)."""
     out = _np(state)
     return out._replace(
-        features=out.features._replace(desc=out.features.desc.view(np.uint32)),
-        lmap=out.lmap._replace(desc=out.lmap.desc.view(np.uint32)),
-        lines=out.lines._replace(desc=out.lines.desc.view(np.uint32)),
-        line_map=out.line_map._replace(desc=out.line_map.desc.view(np.uint32)))
+        features=out.features._replace(desc=_words(out.features.desc)),
+        lmap=out.lmap._replace(desc=_words(out.lmap.desc)),
+        lines=out.lines._replace(desc=_words(out.lines.desc)),
+        line_map=out.line_map._replace(desc=_words(out.line_map.desc)))
 
 
 def backend_config_from_dict(d) -> BackendConfig:
@@ -148,12 +156,13 @@ def table_from_numpy(cls, tree, device):
 
 def table_to_numpy(table):
     """A table with every tensor made a numpy array; int32 descriptor words
-    (``KeyframeDB.kp_desc``, ``KfSnap.desc``) come back as uint32."""
+    (``KeyframeDB.kp_desc``, ``KfSnap.desc``) come back as uint32, a SIFT
+    snapshot's float descriptors as float32."""
     out = _np(table)
     if isinstance(table, KeyframeDB):
-        out = out._replace(kp_desc=out.kp_desc.view(np.uint32))
+        out = out._replace(kp_desc=_words(out.kp_desc))
     if isinstance(table, KfSnap):
-        out = out._replace(desc=out.desc.view(np.uint32))
+        out = out._replace(desc=_words(out.desc))
     return out
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from zenslam_tpu_torch.ops.image import _pyr_down, scharr_gradients
+from zenslam_tpu_torch.utils.device import resolve_device
 
 
 def ragged_level_sizes(H: int, W: int, levels: int):
@@ -43,8 +44,10 @@ def build_ragged_pyramid_pair(img_l, img_r, levels: int, dtype=torch.float32):
 
 
 def empty_ragged_pyramid(H: int, W: int, levels: int, dtype=torch.float32,
-                         device="cpu"):
-    """Zero ragged pyramid with the shapes build_ragged_pyramid_pair makes."""
+                         device=None):
+    """Zero ragged pyramid with the shapes build_ragged_pyramid_pair makes,
+    on ``device`` (default CUDA, raising when absent)."""
+    device = resolve_device(device)
     return tuple(torch.zeros((h, w), dtype=dtype, device=device)
                  for h, w in ragged_level_sizes(H, W, levels + 1))
 

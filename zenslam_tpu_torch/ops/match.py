@@ -1,14 +1,23 @@
-"""Binary-descriptor matching — counterpart of ``zenslam_tpu/ops/match.py``
-(``unpack_bits``, ``hamming_matrix``, ``match_descriptors``, ``radius_gate``,
+"""Descriptor matching — counterpart of ``zenslam_tpu/ops/match.py``
+(``unpack_bits``, ``hamming_matrix``, ``match_descriptors``, ``l2_matrix``,
+``match_descriptors_float``, ``lsh_binarize``, ``radius_gate``,
 ``epipolar_gate``).
 
 Hamming distances come from one product of unpacked bits:
-hamming(a, b) = |a| + |b| - 2 a·b, exact in f32 (small integers).
+hamming(a, b) = |a| + |b| - 2 a·b, exact in f32 (small integers). The float
+(SIFT) family's squared L2 distances come from one product likewise, and
+its LSH sign codes from one projection: these products must run in full f32
+on the card (TF32 would flip cross-checks and sign bits), which is PyTorch's
+default for matmuls.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from zenslam_tpu_torch.ops.orb import pack_bits
+from zenslam_tpu_torch.utils.device import upload_constant
 
 BIG = 1 << 20
 
@@ -55,6 +64,45 @@ def match_descriptors(packed_a, packed_b, valid_a, valid_b, max_distance: int = 
     D = hamming_matrix(packed_a, packed_b)
     return _select_matches(D, valid_a, valid_b, max_distance, cross_check,
                            gate_mask, BIG)
+
+
+def l2_matrix(desc_a, desc_b):
+    """Full squared-L2 distance matrix (N, M) f32: |a|² + |b|² - 2 a·b,
+    clamped at 0."""
+    na = (desc_a * desc_a).sum(-1)
+    nb = (desc_b * desc_b).sum(-1)
+    return torch.clamp(na[:, None] + nb[None, :] - 2.0 * (desc_a @ desc_b.T), min=0.0)
+
+
+def match_descriptors_float(desc_a, desc_b, valid_a, valid_b, max_distance: float = 0.35,
+                            cross_check: bool = True, gate_mask=None):
+    """L2 matcher for float descriptors; the contract of
+    ``match_descriptors`` with a Euclidean (not squared) ``max_distance``."""
+    D = torch.sqrt(l2_matrix(desc_a, desc_b) + 1e-12)
+    return _select_matches(D, valid_a, valid_b, max_distance, cross_check, gate_mask, 1e9)
+
+
+def _lsh_planes(dim: int = 128, bits: int = 256, seed: int = 77) -> np.ndarray:
+    """(dim, bits) f32 random hyperplanes, the reference's numpy draw."""
+    rs = np.random.RandomState(seed)
+    return rs.normal(0.0, 1.0, size=(dim, bits)).astype(np.float32)
+
+
+_PLANES: dict = {}
+
+
+def _planes(dim: int, device) -> torch.Tensor:
+    key = (dim, str(device))
+    if key not in _PLANES:
+        _PLANES[key] = upload_constant(_lsh_planes(dim), device)
+    return _PLANES[key]
+
+
+def lsh_binarize(desc):
+    """(N, D) float descriptors -> (N, 8) int32 words of 256 sign-of-
+    projection bits (SimHash), the bit patterns of the reference's uint32
+    words. Lets the float family flow through every binary consumer."""
+    return pack_bits(desc @ _planes(desc.shape[-1], desc.device) > 0.0)
 
 
 def radius_gate(xy_a, xy_b, radius: float):

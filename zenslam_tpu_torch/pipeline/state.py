@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from zenslam_tpu_torch.utils.device import resolve_device  # noqa: F401  (re-exported)
+
 
 class SlamConfig(NamedTuple):
     """Static configuration; same fields and defaults as the reference's
@@ -90,30 +92,14 @@ class SlamConfig(NamedTuple):
     line_epipolar_min_deg: float = 45.0
 
 
-def check_supported(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for configurations this port does not run
-    yet, naming the ROADMAP.md item that will port them."""
-    todo = []
-    if cfg.descriptor != "orb":
-        todo.append(f"descriptor={cfg.descriptor!r} (Queue 1 item 12: other detector/"
-                    "descriptor families)")
-    if cfg.detector != "fast":
-        todo.append(f"detector={cfg.detector!r} (Queue 1 item 12: other detector/"
-                    "descriptor families)")
-    if cfg.describe_refresh > 1:
-        todo.append("describe_refresh > 1 (Queue 1 item 12: the describe_refresh merge)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to zenslam_tpu_torch yet, see ROADMAP.md: " + "; ".join(todo))
-
-
 class FeatureTable(NamedTuple):
     """Left-canonical per-frame feature table (capacity N = max_keypoints)."""
 
     xy: torch.Tensor         # (N, 2) float32 left-image pixels
     uv_r: torch.Tensor       # (N, 2) float32 right-image pixels
     stereo_ok: torch.Tensor  # (N,) bool
-    desc: torch.Tensor       # (N, 8) int32 packed ORB-256 (uint32 bit patterns)
+    desc: torch.Tensor       # (N, 8) int32 packed words (uint32 bit patterns), or
+                             # (N, 128) float32 for descriptor='sift'
     lm_idx: torch.Tensor     # (N,) int32 landmark slot, -1 = none
     track_id: torch.Tensor   # (N,) int32 stable feature id
     age: torch.Tensor        # (N,) int32 frames tracked
@@ -147,7 +133,7 @@ class LandmarkMap(NamedTuple):
     """World landmark table (capacity M = max_landmarks)."""
 
     xyz: torch.Tensor        # (M, 3) float32
-    desc: torch.Tensor       # (M, 8) int32
+    desc: torch.Tensor       # (M, 8) int32, or (M, 128) float32 (``empty_desc``)
     valid: torch.Tensor      # (M,) bool
     last_seen: torch.Tensor  # (M,) int32
     n_obs: torch.Tensor      # (M,) int32
@@ -258,6 +244,14 @@ def unpack_telemetry(vec) -> FrameTelemetry:
     return FrameTelemetry(*v[:k], R_cw=v[k:k + 9].reshape(3, 3), t_cw=v[k + 9:k + 12])
 
 
+def empty_desc(cfg: SlamConfig, n: int, device=None):
+    """Descriptor storage of the configured family: (n, 128) float32 for
+    ``sift``, (n, 8) int32 packed words otherwise."""
+    if cfg.descriptor == "sift":
+        return torch.zeros((n, 128), dtype=torch.float32, device=device)
+    return torch.zeros((n, 8), dtype=torch.int32, device=device)
+
+
 def empty_lines(cfg: SlamConfig, device=None) -> LineTable:
     n = cfg.max_keylines
     f32, i32 = torch.float32, torch.int32
@@ -293,18 +287,6 @@ def pyramid_dtype(cfg: SlamConfig, device):
     return torch.bfloat16 if resolve_use_kernels(cfg, device) else torch.float32
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names one.
-    Never falls back to the CPU silently."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "zenslam_tpu_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 def frame_generator(state: SlamState, device) -> torch.Generator:
     """The generator for the state's next frame, seeded from (seed, step)."""
     g = torch.Generator(device=device)
@@ -317,7 +299,6 @@ def init_state(cfg: SlamConfig, image_shape, seed: int = 0, device=None) -> Slam
     when absent)."""
     from zenslam_tpu_torch.ops.lk import empty_ragged_pyramid
 
-    check_supported(cfg)
     dev = resolve_device(device)
     H, W = image_shape
     n, m = cfg.max_keypoints, cfg.max_landmarks
@@ -333,10 +314,10 @@ def init_state(cfg: SlamConfig, image_shape, seed: int = 0, device=None) -> Slam
     return SlamState(
         features=FeatureTable(
             xy=z(n, 2), uv_r=z(n, 2), stereo_ok=z(n, dtype=torch.bool),
-            desc=z(n, 8, dtype=i32), lm_idx=full((n,), -1), track_id=full((n,), -1),
+            desc=empty_desc(cfg, n, dev), lm_idx=full((n,), -1), track_id=full((n,), -1),
             age=z(n, dtype=i32), valid=z(n, dtype=torch.bool)),
         lmap=LandmarkMap(
-            xyz=z(m, 3), desc=z(m, 8, dtype=i32), valid=z(m, dtype=torch.bool),
+            xyz=z(m, 3), desc=empty_desc(cfg, m, dev), valid=z(m, dtype=torch.bool),
             last_seen=full((m,), -1), n_obs=z(m, dtype=i32),
             generation=z(m, dtype=i32), color=z(m)),
         lines=empty_lines(cfg, dev), line_map=empty_line_map(cfg, dev),

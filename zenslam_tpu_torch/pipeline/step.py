@@ -1,20 +1,26 @@
 """The per-frame SLAM step — counterpart of ``zenslam_tpu/pipeline/step.py:
-slam_step`` under the configurations ``check_supported`` accepts.
+slam_step``.
 
 Stages, in the reference's order: pyramid pair → predict (IMU
 preintegration and the inertial prediction when an IMU batch is given) →
-temporal KLT → FAST top-up → ORB describe → associate → temporal rematch →
-stereo KLT and triangulation → keylines (``use_keylines``: endpoint KLT,
-detection, description, association, stereo; ``lines_step.py``) → pose
-cascade (keyline endpoints folded into the cam0 PnP; fused when
-``use_pose_fusion``) → map update → line map update → keyframe decision →
-motion update → VIO update (velocity, gravity) → telemetry.
+temporal KLT → detector top-up (``cfg.detector``: FAST, multi-scale Harris
+or DoG scores through one grid selection) → describe (``cfg.descriptor``:
+ORB, SIFT or FREAK; with ``describe_refresh > 1`` only new detections and
+every ``describe_refresh``-th frame of a track's age are described, the
+other valid rows keep their descriptor) → associate → temporal rematch
+(Hamming matches, L2 for SIFT) → stereo KLT and triangulation → keylines
+(``use_keylines``: endpoint KLT, detection, description, association,
+stereo; ``lines_step.py``) → pose cascade (keyline endpoints folded into
+the cam0 PnP; fused when ``use_pose_fusion``) → map update → line map
+update → keyframe decision → motion update → VIO update (velocity,
+gravity) → telemetry.
 
 On the kernel path (``resolve_use_kernels``) the KLT stages (two, four with
-keylines) run ``ops/lk_cuda.lk_ragged`` and the describe stage
-``ops/orb_cuda``; otherwise the f32 gather fallbacks the reference runs
-off-TPU. The reference's ``.at[].set(mode="drop")`` scatters become explicit
-masks: dropped rows go to a spare row past the end of the table
+keylines) run ``ops/lk_cuda.lk_ragged`` and the ORB describe stage
+``ops/orb_cuda`` (with ``describe_refresh > 1``, its ``needs``
+compaction); otherwise the f32 gather fallbacks the reference runs off-TPU.
+The reference's ``.at[].set(mode="drop")`` scatters become explicit masks:
+dropped rows go to a spare row past the end of the table
 (``frontend/tables.scatter_drop``).
 """
 
@@ -36,19 +42,24 @@ from zenslam_tpu_torch.imu.gravity import (
     GravityEstimator, gravity_add_sample, gravity_estimate)
 from zenslam_tpu_torch.imu.predictors import inertial_predict_pose, propagate_velocity
 from zenslam_tpu_torch.imu.preintegration import ImuNoise, preintegrate
-from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
+from zenslam_tpu_torch.ops.dog import dog_score
+from zenslam_tpu_torch.ops.fast import detect_grid_keypoints, select_grid_keypoints
+from zenslam_tpu_torch.ops.freak import freak_descriptors
+from zenslam_tpu_torch.ops.harris import harris_score_multiscale
 from zenslam_tpu_torch.ops.image import clahe
 from zenslam_tpu_torch.ops.lines import keyline_descriptors
 from zenslam_tpu_torch.ops.lk import (
     build_ragged_pyramid_pair, lk_forward_backward, ragged_to_stacked)
 from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
-from zenslam_tpu_torch.ops.match import epipolar_gate, match_descriptors, radius_gate
+from zenslam_tpu_torch.ops.match import (
+    epipolar_gate, match_descriptors, match_descriptors_float, radius_gate)
 from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
+from zenslam_tpu_torch.ops.sift import sift_descriptors
 from zenslam_tpu_torch.pipeline import lines_step as LS
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
-    check_supported, frame_generator, pyramid_dtype, resolve_use_kernels)
+    frame_generator, pyramid_dtype, resolve_use_kernels)
 
 _I32 = torch.int32
 
@@ -105,11 +116,18 @@ def _temporal_track(cfg, use_k, rig, state, pyr_l, R_pred, t_pred):
 
 
 def _detect_topup(cfg, img_l, feats: FeatureTable, next_track_id):
-    """FAST grid detection into free slots with fresh track ids."""
-    det_xy, det_score, det_valid = detect_grid_keypoints(
-        img_l, feats.xy, feats.valid, threshold=cfg.fast_threshold,
-        cell_size=cfg.cell_size, max_keypoints=cfg.max_keypoints,
-        border=cfg.detect_border, subpixel=cfg.subpixel_detect)
+    """Grid detection into free slots with fresh track ids; ``cfg.detector``
+    picks the dense score ("harris", "dog", anything else FAST)."""
+    grid = dict(cell_size=cfg.cell_size, max_keypoints=cfg.max_keypoints,
+                border=cfg.detect_border, subpixel=cfg.subpixel_detect)
+    if cfg.detector in ("harris", "dog"):
+        score = (dog_score(img_l, threshold=cfg.dog_threshold) if cfg.detector == "dog"
+                 else harris_score_multiscale(img_l, threshold=cfg.harris_threshold))
+        det_xy, det_score, det_valid = select_grid_keypoints(score, feats.xy, feats.valid,
+                                                             **grid)
+    else:
+        det_xy, det_score, det_valid = detect_grid_keypoints(
+            img_l, feats.xy, feats.valid, threshold=cfg.fast_threshold, **grid)
     slot, placed = insert_into_free_slots(~feats.valid, det_score, det_valid)
     n = feats.xy.shape[0]
     sl = torch.where(placed, slot, n)
@@ -126,12 +144,40 @@ def _detect_topup(cfg, img_l, feats: FeatureTable, next_track_id):
     return feats, n_placed, (next_track_id + n_placed).to(_I32)
 
 
-def _compute_descriptors(cfg, use_k, img_l, feats: FeatureTable):
+def _compute_descriptors(cfg, use_k, img_l, feats: FeatureTable, needs=None):
+    """Descriptors of the configured family ("sift", "freak", anything else
+    ORB). ``needs``: optional (N,) bool of the rows the caller keeps; the ORB
+    kernel skips the others and leaves them undefined, the other families
+    compute every row."""
+    if cfg.descriptor == "sift":
+        return sift_descriptors(img_l, feats.xy, feats.valid)
+    if cfg.descriptor == "freak":
+        return freak_descriptors(img_l, feats.xy, feats.valid)[0]
     if use_k and cfg.orb_backend != "xla":
-        desc, _ = orb_descriptors_kernel(img_l, feats.xy, feats.valid)
-        return desc
-    desc, _ = orb_descriptors(img_l, feats.xy, feats.valid)
-    return desc
+        return orb_descriptors_kernel(img_l, feats.xy, feats.valid, needs=needs)[0]
+    return orb_descriptors(img_l, feats.xy, feats.valid)[0]
+
+
+def _describe(cfg, use_k, img_l, feats: FeatureTable):
+    """The describe stage. With ``describe_refresh > 1`` only the valid rows
+    whose age is a multiple of it (new detections included) are computed;
+    the other valid rows keep their descriptor and invalid rows are zeroed,
+    as the every-frame path emits them."""
+    if cfg.describe_refresh <= 1:
+        return _compute_descriptors(cfg, use_k, img_l, feats)
+    needs = feats.valid & (feats.age % cfg.describe_refresh == 0)
+    computed = _compute_descriptors(cfg, use_k, img_l, feats, needs=needs)
+    kept = torch.where(feats.valid[:, None], feats.desc, torch.zeros_like(feats.desc))
+    return torch.where(needs[:, None], computed, kept)
+
+
+def _match_desc(cfg, da, db, va, vb, gate_mask):
+    """Cross-checked matches of the family: L2 for "sift", Hamming else."""
+    if cfg.descriptor == "sift":
+        return match_descriptors_float(da, db, va, vb, max_distance=cfg.float_match_distance,
+                                       cross_check=True, gate_mask=gate_mask)
+    return match_descriptors(da, db, va, vb, max_distance=cfg.landmark_match_distance,
+                             cross_check=True, gate_mask=gate_mask)
 
 
 def _stereo_and_triangulate(cfg, use_k, rig: StereoRig, pyr_l, pyr_r,
@@ -173,9 +219,7 @@ def _associate_landmarks(cfg, rig: StereoRig, feats: FeatureTable, lmap, R_pred,
     assignable = lmap.valid & in_frustum & (~attached)
     free_kp = feats.valid & (feats.lm_idx < 0)
     gate = radius_gate(feats.xy, proj, 20.0)
-    idx, _, ok = match_descriptors(feats.desc, lmap.desc, free_kp, assignable,
-                                   max_distance=cfg.landmark_match_distance,
-                                   cross_check=True, gate_mask=gate)
+    idx, _, ok = _match_desc(cfg, feats.desc, lmap.desc, free_kp, assignable, gate)
     new_lm_idx = torch.where(ok & free_kp, idx, feats.lm_idx).to(_I32)
     return feats._replace(lm_idx=new_lm_idx), (ok & free_kp).sum()
 
@@ -199,9 +243,7 @@ def _temporal_rematch(cfg, rig: StereoRig, feats: FeatureTable, prev_desc, prev_
     Kinv = torch.linalg.inv(rig.left.K)
     F = Kinv.T @ E @ Kinv
     gate = epipolar_gate(F, prev_xy, feats.xy, cfg.temporal_match_epipolar)
-    idx, _, ok = match_descriptors(prev_desc, feats.desc, lost, free,
-                                   max_distance=cfg.landmark_match_distance,
-                                   cross_check=True, gate_mask=gate)
+    idx, _, ok = _match_desc(cfg, prev_desc, feats.desc, lost, free, gate)
     tgt = torch.where(ok, idx, N)
     new_lm = _scatter(feats.lm_idx, tgt, torch.where(ok, prev_lm_idx, -1))
     return feats._replace(lm_idx=new_lm), ok.sum()
@@ -302,7 +344,6 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     state's generator (seed, frame counter). imu: optional (gyro (S, 3),
     accel (S, 3), dts (S,), mask (S,)), the IMU samples of the interval
     ending at this frame; it turns on the VIO branch."""
-    check_supported(cfg)
     dev = img_l.device
     use_k = resolve_use_kernels(cfg, dev)
     N = cfg.max_keypoints
@@ -341,7 +382,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     feats, n_detected, next_track_id = _detect_topup(cfg, img_l, feats, state.next_track_id)
 
     # ---- DESCRIBE ----------------------------------------------------------
-    feats = feats._replace(desc=_compute_descriptors(cfg, use_k, img_l, feats))
+    feats = feats._replace(desc=_describe(cfg, use_k, img_l, feats))
 
     # ---- ASSOCIATE lost landmarks ------------------------------------------
     feats, _ = _associate_landmarks(cfg, rig, feats, state.lmap, R_pred, t_pred)

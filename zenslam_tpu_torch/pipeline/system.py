@@ -46,7 +46,7 @@ from zenslam_tpu_torch.estimation.pnp import solve_pnp_ransac
 from zenslam_tpu_torch.estimation.ransac import gumbel
 from zenslam_tpu_torch.geometry.camera import StereoRig
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse
-from zenslam_tpu_torch.ops.match import match_descriptors
+from zenslam_tpu_torch.ops.match import lsh_binarize, match_descriptors
 from zenslam_tpu_torch.pipeline.state import (
     MotionModel, SlamConfig, SlamState, init_state, pack_telemetry, resolve_device,
     unpack_telemetry)
@@ -103,10 +103,13 @@ def check_backend_supported(cfg: SlamConfig, bcfg: BackendConfig) -> None:
             "Queue 1 item 17 (parallel/dist_ba.py)")
     if bcfg.ba_solver not in ("auto", "dense", "cg"):
         raise ValueError(f"unknown ba_solver {bcfg.ba_solver!r}")
-    if cfg.descriptor == "sift":
-        raise NotImplementedError(
-            "descriptor='sift' is not ported to zenslam_tpu_torch yet (the back end "
-            "needs ops/match.lsh_binarize), see ROADMAP.md Queue 1 item 12")
+
+
+def _binary_codes(cfg: SlamConfig, desc):
+    """Descriptors as the back end stores and matches them: the keyframe DB,
+    the vocabulary and the loop and reloc matching are binary, so the float
+    (SIFT) family crosses into them as LSH sign codes."""
+    return lsh_binarize(desc) if cfg.descriptor == "sift" else desc
 
 
 class HostCopy:
@@ -218,7 +221,8 @@ def create_system(cfg: SlamConfig, bcfg: BackendConfig, rig: StereoRig, image_sh
         state=init_state(cfg, image_shape, seed=seed, device=dev),
         kf_db=kf_db_init(bcfg.max_keyframes, cfg.max_keypoints, device=dev),
         bow_db=bow_db_init(bcfg.max_keyframes, bow_n_words(bcfg), device=dev),
-        archive=LandmarkArchive((8,), np.uint32))
+        archive=(LandmarkArchive((128,), np.float32) if cfg.descriptor == "sift"
+                 else LandmarkArchive((8,), np.uint32)))
     if bcfg.vocab_file:
         sys.vocab = load_vocabulary(bcfg.vocab_file, device=dev)
         sys.last_vocab_kfs = 1 << 30   # pre-trained: never retrain
@@ -331,7 +335,8 @@ def _retrain_vocab(sys: SlamSystem, draw: Optional[Callable] = None):
         a_desc[:take] = arch.desc[sel]
         a_valid = np.zeros(n_s, bool)
         a_valid[:take] = True
-        desc = torch.cat([desc, torch.from_numpy(a_desc.view(np.int32)).to(dev)])
+        a_desc = a_desc.view(np.int32) if a_desc.dtype == np.uint32 else a_desc
+        desc = torch.cat([desc, _binary_codes(sys.cfg, torch.from_numpy(a_desc).to(dev))])
         valid = torch.cat([valid, torch.from_numpy(a_valid).to(dev)])
     sys.vocab = _train_vocab(sys.bcfg, desc, valid, draw or generator_draw(13, dev))
     sys.n_vocab_trains += 1
@@ -418,8 +423,9 @@ def _try_relocalize(sys: SlamSystem, noise=None) -> bool:
     if noise is None:
         noise = _gate_noise(sys.n_frames, min(k, sys.bcfg.max_keyframes), snap.xy.shape[0],
                             sys.device)
-    packed = _reloc_query(sys.vocab, sys.bow_db, sys.kf_db, snap.desc, snap.valid, snap.xy,
-                          sys.rig.left.K, sys.bcfg.loop_pnp_threshold, noise, top_k=k)
+    packed = _reloc_query(sys.vocab, sys.bow_db, sys.kf_db, _binary_codes(sys.cfg, snap.desc),
+                          snap.valid, snap.xy, sys.rig.left.K, sys.bcfg.loop_pnp_threshold,
+                          noise, top_k=k)
     sys.host_reads["reloc"] += 1
     arr = packed.cpu().numpy()
     k = min(k, sys.bcfg.max_keyframes)
@@ -683,8 +689,9 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
     prev_slot = sys.last_kf_slot
     slot = sys.n_keyframes % sys.bcfg.max_keyframes   # host mirror of kf_db.next_slot
     sys.n_keyframes += 1
+    kf_desc = _binary_codes(sys.cfg, snap.desc)
     sys.kf_db = kf_db_add(sys.kf_db, snap.R_cw, snap.t_cw, snap.xy, snap.lm_idx,
-                          snap.valid & (snap.lm_idx >= 0), snap.desc, frame_idx,
+                          snap.valid & (snap.lm_idx >= 0), kf_desc, frame_idx,
                           kp_uvr=snap.uv_r, kp_stereo=snap.stereo_ok,
                           kp_lm_gen=snap.kp_lm_gen, kp_xyz=snap.kp_xyz)
     sys.last_kf_slot = slot
@@ -702,7 +709,7 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
     if sys.bcfg.enable_loop_closure:
         n_kfs = sys.n_keyframes
         if sys.vocab is None:
-            sys.vocab = _train_vocab(sys.bcfg, snap.desc, snap.valid,
+            sys.vocab = _train_vocab(sys.bcfg, kf_desc, snap.valid,
                                      draws.vocab or generator_draw(7, sys.device))
             sys.n_vocab_trains += 1
         elif (n_kfs >= sys.bcfg.vocab_retrain_kfs
