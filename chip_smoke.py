@@ -126,7 +126,42 @@ Phases (each one fatal on failure):
    (Harris) on the kernel path (2 LK and 0 ORB launches per frame), and
    SIFT and ORB (FAST) on the f32 path that test runs: a loop closes
    through the LSH crossing, SIFT's recall >= 0.5 x ORB's > 0;
-13. a ``kernels`` JSON line (``launches`` is the system phase's count,
+13. dist: the sharded BA (``parallel/``) on a one-rank NCCL group, as
+   ``__graft_entry__.py:dryrun_multichip`` drives it: (a) the solver alone
+   on the dry run's stage-1 problem (K = 8 on an arc, 8 x 32 landmarks,
+   seed 0), 8 LM steps with 1 and 8 shards against the dense solver: max
+   |dt| and |dR| < 5e-3, cost down > 10x, the shard counts within 1e-4,
+   the group's backend ``nccl``, 1 + 2 x 8 collectives a solve; (b) the
+   system phase's 80-frame run with ``ba_solver="dist"`` at one shard
+   (``dist_devices=0``) and at 8, beside the system phase's dense run: the
+   same keyframes and BA runs, every window's rmse_after <= 1.05
+   rmse_before with no dropped observation, frame and keyframe poses within
+   5e-2 of the dense run's, ATE < 0.05 m, pose_ok >= 0.9, 2 LK + 1 ORB
+   launches per timed frame, no implicit synchronise in ``parallel/`` or
+   on the lines of ``system._windowed_ba``; the
+   route drops (read after the run), median ``backend_ms`` and
+   ``ba_dispatch`` beside the dense run's, peak memory, and what one
+   windowed BA costs on the last keyframe's inputs, dense and at 1 and 8
+   shards (``torch.profiler`` kernels and busy ms, host ms); (c) the dry
+   run's stage 3, the 64-frame 320x240 orbit (seed 21) with BA and loop
+   closure, dense and at 1 and 8 shards: >= 3 BA runs and >= 1 loop each,
+   the 1-shard run's poses within 5e-2 of the dense run's, the 8-shard
+   run's gap and route drops printed, and on the f32 path, the one the dry
+   run ran (the reference on the CPU runs no Pallas kernel), 8 shards
+   within 5e-2 of dense; on the kernel path, at the first window where the
+   dense and 8-shard runs part, teacher-forced, the 8-shard solver within
+   1e-6 of the dense solver on the same observation rows, beside the
+   dense solver on a permutation of its own rows; (d) the dry run's stage
+   2, the 10-frame 192x144 strafe (seed 4), through 1 and 2 offline
+   worker processes on the card and the in-process chunker, on the kernel and the f32 path: the
+   2-worker stitch within 5e-3 of the in-process one on both, and the dry
+   run's check (the truth's sign, within 0.15 m) held, at a third of its
+   bar, on the x-displacement that the images fix, dx + 6 m x the yaw
+   change, of the stitch and the serial run (at 192x144 the 28 degree view
+   of the wall 6 m ahead confuses a strafe with a yaw); the raw dx and the
+   dry run's verdict on it printed; the wall times of 1 and 2 workers
+   (reported);
+14. a ``kernels`` JSON line (``launches`` is the system phase's count,
    ``launches_by_path`` every path's), the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -155,7 +190,9 @@ import argparse
 import contextlib
 import csv
 import functools
+import inspect
 import json
+import os
 import re
 import subprocess
 import sys
@@ -189,6 +226,10 @@ FAMILIES = {         # families phase: run name -> SlamConfig fields
 FAMILY_COST_FRAME = 30    # families phase: the step whose cost is measured
 REFRESH_CHECK_FRAME = 20  # families phase: the step whose needs rows are checked
 SIZE = 1024
+DIST_ITERS = 8       # dist phase: LM iterations of the solver-alone runs (the dry run's)
+DIST_BAR = 5e-2      # dist phase: frame / keyframe t against the dense run (dry run stage 3)
+STRAFE_WALL_Z = 6.0  # dist phase (d): the corridor's end wall (io/synthetic.py), m ahead
+STRAFE_BAR = 0.05    # dist phase (d): yaw-corrected dx against the truth, m (dry run: 0.15)
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -794,7 +835,11 @@ def phase_system(seq, dev):
             "system: a BA run raised its rmse by > 5% or dropped observations")
     require(ok_share >= 0.9, f"system: pose_ok on {ok_share:.3f} < 0.9 of frames")
     require(ate < 0.05, f"system: ATE {ate:.4f} m >= 0.05 m")
-    return launches
+    dense = {"R": R, "t": tt, "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
+             "kf_t": s.kf_db.t.cpu().numpy(), "kf_valid": s.kf_db.valid.cpu().numpy(),
+             "n_keyframes": s.n_keyframes, "n_ba_runs": s.n_ba_runs, "backend_ms": backend,
+             "ba_dispatch": phases.get("ba_dispatch", [])}
+    return launches, dense
 
 
 @contextlib.contextmanager
@@ -1713,8 +1758,6 @@ def family_run(cfg, seq, dev) -> dict:
 def new_module_syncs(records) -> Counter:
     """The synchronise records inside the families' op modules and the float
     matcher and LSH functions of ``ops/match.py``."""
-    import inspect
-
     from zenslam_tpu_torch.ops import match
 
     spans = []
@@ -1876,6 +1919,480 @@ def phase_families(seq, dev):
     return paths
 
 
+def dist_problem(dev):
+    """``__graft_entry__.py:dryrun_multichip``'s stage-1 problem: K = 8
+    keyframes on an arc, 8 x 32 landmarks seen by 4 random keyframes each,
+    poses and landmarks perturbed, seed 0."""
+    import torch
+
+    from zenslam_tpu_torch.backend.ba import make_ba_problem
+    from zenslam_tpu_torch.geometry.lie import so3_exp
+
+    rng = np.random.default_rng(0)
+    K, M = 8, 8 * 32
+    fx = fy = 300.0
+    cx = cy = 128.0
+    X = np.stack([rng.uniform(-3, 3, M), rng.uniform(-2, 2, M),
+                  rng.uniform(4, 10, M)], -1).astype(np.float32)
+    R_gt = [so3_exp(torch.tensor([0.0, 0.04 * k, 0.01 * k])).numpy() for k in range(K)]
+    t_gt = [np.array([0.25 * k, 0.02 * k, 0], np.float32) for k in range(K)]
+    obs_kf, obs_lm, obs_uv = [], [], []
+    for m in range(M):
+        for k in sorted(rng.choice(K, 4, replace=False)):
+            xc = R_gt[k] @ X[m] + t_gt[k]
+            if xc[2] <= 0.5:
+                continue
+            obs_kf.append(k)
+            obs_lm.append(m)
+            obs_uv.append([fx * xc[0] / xc[2] + cx, fy * xc[1] / xc[2] + cy])
+    O = len(obs_kf)
+    p = make_ba_problem(K, M, O, fx, fy, cx, cy, device=dev)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return p._replace(
+        R=t(np.stack(R_gt)), t=t(np.stack(t_gt) + rng.normal(0, 0.02, (K, 3)).astype(np.float32)),
+        kf_valid=t(np.ones(K, bool), torch.bool), kf_fixed=t(np.arange(K) < 2, torch.bool),
+        xyz=t(X + rng.normal(0, 0.05, (M, 3)).astype(np.float32)),
+        lm_valid=t(np.ones(M, bool), torch.bool), obs_kf=t(obs_kf, torch.int32),
+        obs_lm=t(obs_lm, torch.int32), obs_uv=t(obs_uv), obs_valid=t(np.ones(O, bool), torch.bool))
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Inside the block, the sizes (floats) of every all-reduce that the
+    sharded solver makes, in order."""
+    from zenslam_tpu_torch.parallel import dist_ba
+
+    inner, sizes = dist_ba._all_reduce, []
+
+    def counted(x, mesh):
+        sizes.append(x.numel())
+        return inner(x, mesh)
+
+    dist_ba._all_reduce = counted
+    try:
+        yield sizes
+    finally:
+        dist_ba._all_reduce = inner
+
+
+def dist_solver_alone(dev) -> None:
+    """(a): the sharded solver alone on the dry run's stage-1 problem, 1 and 8
+    shards on the one-rank NCCL mesh, against the dense solver."""
+    import torch
+    import torch.distributed as tdist
+
+    from zenslam_tpu_torch.backend.ba import bundle_adjust
+    from zenslam_tpu_torch.parallel import dist_bundle_adjust, make_ba_mesh, shard_ba_problem
+
+    p = dist_problem(dev)
+    dense = bundle_adjust(p, iterations=DIST_ITERS)
+    dense_ms = float(np.median(time_calls(lambda: bundle_adjust(p, iterations=DIST_ITERS), 5,
+                                          repeats=3)))
+    out = {}
+    for n in (1, 8):
+        mesh = make_ba_mesh(n, device=dev)
+        backend = tdist.get_backend(mesh.group)
+        require(backend == "nccl", f"dist: the {dev} mesh reduces over {backend!r}, not nccl")
+        ps = shard_ba_problem(p, n)
+        with counted_collectives() as sizes:
+            r = dist_bundle_adjust(ps, mesh, iterations=DIST_ITERS)
+            torch.cuda.synchronize()
+        ms = float(np.median(time_calls(
+            lambda: dist_bundle_adjust(ps, mesh, iterations=DIST_ITERS), 5, repeats=3)))
+        dt = float((r["t"] - dense["t"]).abs().max())
+        dR = float((r["R"] - dense["R"]).abs().max())
+        cb, ca = float(r["cost_before"]), float(r["cost_after"])
+        print(f"[dist] solver alone, {n} shard(s) over a {backend} group of "
+              f"{tdist.get_world_size(mesh.group)} rank: K=8 M={p.xyz.shape[0]} "
+              f"O={p.obs_kf.shape[0]}, cost {cb:.4f} -> {ca:.6f}, vs dense max|dt| {dt:.2e} "
+              f"max|dR| {dR:.2e}; {len(sizes)} collectives a solve ({sizes[0]} + "
+              f"{DIST_ITERS} x ({sizes[1]} + {sizes[2]}) floats); {ms:.2f} ms a solve "
+              f"(dense {dense_ms:.2f} ms; host + device, CUDA events)")
+        require(len(sizes) == 1 + 2 * DIST_ITERS,
+                f"dist: {len(sizes)} collectives a solve != 1 + 2 x {DIST_ITERS}")
+        require(dt < 5e-3 and dR < 5e-3, f"dist: {n} shards max|dt| {dt:.2e} max|dR| {dR:.2e} "
+                                         "against the dense solver (bar 5e-3)")
+        require(ca < cb / 10, f"dist: {n} shards cost {cb:.4f} -> {ca:.4f}, not a 10x drop")
+        out[n] = r
+    d = float((out[1]["t"] - out[8]["t"]).abs().max())
+    print(f"[dist] 1 shard vs 8 shards: max|dt| {d:.2e}")
+    require(d <= 1e-4, f"dist: 1 and 8 shards part by {d:.2e} > 1e-4")
+
+
+@contextlib.contextmanager
+def routed_drops(system_module, drops: list, windows: list):
+    """Inside the block, append to ``drops`` the route-drop count (a device
+    tensor, unread) of every live dist BA, and to ``windows`` the
+    (arguments, keyword arguments, outputs) of every ``_windowed_ba`` call."""
+    route, window = system_module.shard_ba_problem_device, system_module._windowed_ba
+
+    def routed(*args, **kwargs):
+        ps, n = route(*args, **kwargs)
+        drops.append(n)
+        return ps, n
+
+    def windowed(*args, **kwargs):
+        out = window(*args, **kwargs)
+        windows.append((args, kwargs, out))
+        return out
+
+    system_module.shard_ba_problem_device = routed
+    system_module._windowed_ba = windowed
+    try:
+        yield
+    finally:
+        system_module.shard_ba_problem_device = route
+        system_module._windowed_ba = window
+
+
+def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
+    """(b): the system phase's run with ``ba_solver="dist"`` at ``n_shards``
+    (0: one a rank), checked against the dense run; returns (launches, the
+    last windowed BA's arguments and keyword arguments)."""
+    import torch
+
+    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.system import (
+        BackendConfig, create_system, flush_pipeline, process_frame)
+
+    s = create_system(SlamConfig(), BackendConfig(telemetry_lag=3, ba_solver="dist",
+                                                  dist_devices=n_shards), seq.rig, (SIZE, SIZE))
+    tels, infos, drops, windows = [], [], [], []
+    src, first = inspect.getsourcelines(system._windowed_ba)
+    window_lines = range(first, first + len(src))
+
+    def keep(tel, info):
+        if tel is not None:
+            tels.append(tel)
+            infos.append(info)
+
+    with routed_drops(system, drops, windows):
+        for t in range(SYSTEM_WARMUP):
+            keep(*process_frame(s, seq.left[t], seq.right[t]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_timed_infos = len(infos)
+        reset_launches()
+        t0 = time.perf_counter()
+        with implicit_syncs() as records:
+            for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
+                keep(*process_frame(s, seq.left[t], seq.right[t]))
+            for tel, info in flush_pipeline(s):
+                keep(tel, info)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = read_launches()
+    n = SYSTEM_FRAMES - SYSTEM_WARMUP
+    n_drop = int(torch.stack(drops).sum()) if drops else 0
+    timed = infos[n_timed_infos:]
+    backend = [i["backend_ms"] for i in timed if i["backend_ms"] > 0]
+    dispatch = [i["phases"]["ba_dispatch"] for i in timed if "ba_dispatch" in i.get("phases", {})]
+    R = np.stack([t.R_cw for t in tels])
+    tt = np.stack([t.t_cw for t in tels])
+    is_kf = np.array([bool(t.is_keyframe) for t in tels])
+    pose_ok = float(np.array([float(t.pose_ok) for t in tels])[1:].mean())
+    ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
+    runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
+    kf_t, kf_v = s.kf_db.t.cpu().numpy(), s.kf_db.valid.cpu().numpy()
+    both = kf_v & dense["kf_valid"]
+    d_frames = float(np.abs(tt - dense["t"]).max())
+    d_kf = float(np.abs(kf_t[both] - dense["kf_t"][both]).max())
+    in_parallel = Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in records if "synchroniz" in str(w.message)
+        and (f"{os.sep}parallel{os.sep}" in w.filename
+             or (Path(w.filename).resolve() == Path(system.__file__).resolve()
+                 and w.lineno in window_lines)))
+    n_sync = len(sync_sites(records))
+    mesh = system._live_ba_mesh(n_shards, s.device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"[{tag}] ba_solver dist, {mesh.n_shards} shard(s): {n} frames {dt / n * 1e3:.2f} "
+          f"ms/frame, peak {peak:.1f} MiB; keyframes {s.n_keyframes} (dense "
+          f"{dense['n_keyframes']}), BA runs {s.n_ba_runs} (dense {dense['n_ba_runs']}); "
+          f"pose_ok {pose_ok:.3f}, ATE {ate:.5f} m; launches {launches}")
+    print(f"[{tag}] against the dense run: max|dt| frames {d_frames:.3e} m, keyframes "
+          f"{d_kf:.3e} m; route drops over the run {n_drop}; backend_ms median "
+          f"{float(np.median(backend)):.2f} (dense {float(np.median(dense['backend_ms'])):.2f}), "
+          f"ba_dispatch median {float(np.median(dispatch)):.3f} ms (dense "
+          f"{float(np.median(dense['ba_dispatch'])):.3f}); implicit synchronises in the run "
+          f"{n_sync} lines, in parallel/ and system.py:_windowed_ba: "
+          f"{dict(in_parallel) or 'none'}")
+    print(f"[{tag}] BA rmse before/after/dropped: "
+          + "; ".join(f"{a:.4f}/{b:.4f}/{int(c)}" for a, b, c in runs))
+    require(launches == {"lk_fb": 2 * n, "orb": n},
+            f"{tag}: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
+    require(s.n_keyframes == dense["n_keyframes"] and s.n_ba_runs == dense["n_ba_runs"]
+            and np.array_equal(is_kf, dense["is_kf"]),
+            f"{tag}: keyframes / BA runs differ from the dense run")
+    require(all(np.isfinite(r).all() and r[1] <= 1.05 * r[0] and r[2] == 0 for r in runs),
+            f"{tag}: a BA run raised its rmse by > 5% or dropped observations")
+    require(d_frames < DIST_BAR and d_kf < DIST_BAR,
+            f"{tag}: poses part from the dense run by {d_frames:.3e} / {d_kf:.3e} m")
+    require(ate < 0.05 and pose_ok >= 0.9, f"{tag}: ATE {ate:.4f} m, pose_ok {pose_ok:.3f}")
+    require(not in_parallel, f"{tag}: implicit synchronises in parallel/ or _windowed_ba "
+                             f"{dict(in_parallel)}")
+    return launches, windows[-1][:2]
+
+
+def loop_run(seq, cfg, solver: str, n_shards: int = 8) -> tuple:
+    """One run of the dry run's stage 3 (BA every keyframe, loop closure on)
+    with ``solver``; returns (frame t_cw, the system, launches, the route
+    drops summed after the run, every windowed BA's (arguments, keyword
+    arguments, outputs))."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, run_system
+
+    bc = BackendConfig(ba_every_kf=True, enable_loop_closure=True, ba_solver=solver,
+                       dist_devices=n_shards, bow_branch=32, bow_top_k=5, bow_min_score=0.20,
+                       bow_min_frame_gap=15, loop_min_inliers=12)
+    s = create_system(cfg, bc, seq.rig, (240, 320))
+    drops, windows = [], []
+    reset_launches()
+    with routed_drops(system, drops, windows):
+        tel, _ = run_system(s, seq.left, seq.right)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    return tel.t_cw, s, launches, int(torch.stack(drops).sum()) if drops else 0, windows
+
+
+def loop_gap(a, b) -> tuple:
+    """max |dt| of two loop runs over frames and over their common keyframes."""
+    both = (a[1].kf_db.valid & b[1].kf_db.valid).cpu().numpy()
+    kf_a, kf_b = a[1].kf_db.t.cpu().numpy(), b[1].kf_db.t.cpu().numpy()
+    return float(np.abs(a[0] - b[0]).max()), float(np.abs(kf_a[both] - kf_b[both]).max())
+
+
+def dist_loop(dev) -> dict:
+    """(c): the dry run's stage 3, the 64-frame 320x240 orbit (seed 21) with
+    BA and loop closure: on the kernel path dense and dist at 1 and 8
+    shards, >= 3 BA runs and a loop in each and the 1-shard run within
+    DIST_BAR of the dense one; on the f32 path (the one the dry run ran:
+    the reference on the CPU runs no Pallas kernel) 8 shards within
+    DIST_BAR of dense, the dry run's check; every gap and route-drop count
+    printed. The kernel path's 8-shard run parts from the dense one by
+    meters: ``window_witness`` holds the 8-shard solver to the dense solver
+    on the same rows where they first part (see PERF.md)."""
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.pipeline import SlamConfig
+
+    seq = make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
+                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0, device=dev)
+    cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
+                     kf_min_translation=0.05)
+    f32 = cfg._replace(use_pallas_lk=False)
+    runs = {}
+    for name, c, solver, n in (("dense", cfg, "dense", 0), ("dist1", cfg, "dist", 1),
+                               ("dist8", cfg, "dist", 8), ("f32_dense", f32, "dense", 0),
+                               ("f32_dist8", f32, "dist", 8)):
+        t0 = time.perf_counter()
+        runs[name] = t, s, launches, drops, _ = loop_run(seq, c, solver, n)
+        print(f"[dist_loop] {name}: 64 frames in {time.perf_counter() - t0:.2f} s, keyframes "
+              f"{s.n_keyframes}, BA runs {s.n_ba_runs}, loop closures {s.n_loop_closures}, "
+              f"keyframe ATE {kf_ate(s.kf_db, seq):.5f} m, route drops {drops}, launches "
+              f"{launches}")
+        if name.startswith("f32"):
+            continue
+        require(np.isfinite(t).all() and s.n_ba_runs >= 3 and s.n_loop_closures >= 1,
+                f"dist_loop {name}: {s.n_ba_runs} BA runs, {s.n_loop_closures} loops")
+        require(launches == {"lk_fb": 128, "orb": 64},
+                f"dist_loop {name}: launches {launches} != 2 LK + 1 ORB per frame")
+    gaps = {name: loop_gap(runs[name], runs[base]) for name, base in (
+        ("dist1", "dense"), ("dist8", "dense"), ("f32_dist8", "f32_dense"))}
+    for name, (d_live, d_kf) in gaps.items():
+        print(f"[dist_loop] {name} vs its dense run: max|dt| frames {d_live:.3e} m, keyframes "
+              f"{d_kf:.3e} m")
+    for name in ("dist1", "f32_dist8"):
+        require(max(gaps[name]) < DIST_BAR,
+                f"dist_loop: {name} parts from its dense run by {max(gaps[name]):.3e} m")
+    window_witness(runs["dense"][4], runs["dist8"][4], dev)
+    return runs["dist8"][2]
+
+
+def window_witness(dense_windows: list, dist_windows: list, dev) -> None:
+    """(c) on the kernel path, where the dense and 8-shard orbit runs part:
+    the first window whose outputs part by more than 1e-5, teacher-forced
+    on the dense run's inputs. The 8-shard solver must give, within 1e-6,
+    what the dense solver gives on the same observation rows in the
+    router's order; the dense solver on a seeded permutation of its own
+    rows is printed beside, as is how many of the window's landmarks have
+    a 3x3 block V with its least eigenvalue under 1e-6 of its largest (one
+    view: the block's null direction is rounding, which the damping does
+    not dominate)."""
+    import torch
+
+    from zenslam_tpu_torch.backend.ba import _build_blocks
+    from zenslam_tpu_torch.pipeline import system
+
+    def out_gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a[2][:5], b[2][:5]))
+
+    first = next((i for i, (a, b) in enumerate(zip(dense_windows, dist_windows))
+                  if out_gap(a, b) > 1e-5), None)
+    if first is None:
+        print("[dist_loop] kernel path: every dense and 8-shard window within 1e-5")
+        return
+    args, kwargs, _ = dense_windows[first]
+    caught = {}
+    solvers = (system.bundle_adjust, system.dist_bundle_adjust)
+
+    def catch(name, fn):
+        def caught_call(p, *a, **k):
+            caught[name] = (p, a)
+            return fn(p, *a, **k)
+        return caught_call
+
+    system.bundle_adjust = catch("dense", solvers[0])
+    system.dist_bundle_adjust = catch("dist8", solvers[1])
+    try:
+        system._windowed_ba(*args, **dict(kwargs, solver="dense", mesh=None))
+        system._windowed_ba(*args, **dict(kwargs, solver="dist",
+                                          mesh=system._live_ba_mesh(8, dev)))
+    finally:
+        system.bundle_adjust, system.dist_bundle_adjust = solvers
+    pd, (ps8, (mesh,)) = caught["dense"][0], caught["dist8"]
+    it = kwargs["iterations"]
+    ops, ms = ps8.obs_kf.shape[0] // mesh.n_shards, ps8.xyz.shape[0] // mesh.n_shards
+    shard = torch.arange(ps8.obs_kf.shape[0], device=dev) // ops
+    obs = ("obs_kf", "obs_lm", "obs_uv", "obs_cam", "obs_valid")
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(pd.obs_kf.shape[0])).to(dev)
+    res = {"dense": solvers[0](pd, iterations=it),
+           "dist8": solvers[1](ps8, mesh, iterations=it),
+           "dense, router's rows": solvers[0](pd._replace(**dict(
+               {k: getattr(ps8, k) for k in obs},
+               obs_lm=(ps8.obs_lm + shard * ms).to(torch.int32))), iterations=it),
+           "dense, permuted rows": solvers[0](pd._replace(
+               **{k: getattr(pd, k)[perm] for k in obs}), iterations=it)}
+
+    def gap(a, b):
+        return max(float((res[a][k] - res[b][k]).abs().max()) for k in ("R", "t"))
+
+    V = _build_blocks(pd, pd.R, pd.t, pd.xyz, 1.0)[2][pd.lm_valid]
+    ev = torch.linalg.eigvalsh(V.double())
+    one_view = int((ev[:, 0] < 1e-6 * ev[:, 2].clamp(min=1e-30)).sum())
+    print(f"[dist_loop] kernel path, window {first} (the first whose dense and 8-shard outputs "
+          f"part), teacher-forced: {int(pd.kf_valid.sum())} keyframes, {V.shape[0]} landmarks, "
+          f"{one_view} of them one-view; {it} LM steps, cost / accepted: " + "; ".join(
+              f"{k} {float(r['cost_after']):.6f} / {int(r['n_accepted'])}"
+              for k, r in res.items()))
+    d_same = gap("dist8", "dense, router's rows")
+    c8, cs = float(res["dist8"]["cost_after"]), float(res["dense, router's rows"]["cost_after"])
+    print(f"[dist_loop] window {first}: max|d| of R and t, dist8 vs dense "
+          f"{gap('dist8', 'dense'):.3e}, dense on permuted rows vs dense "
+          f"{gap('dense, permuted rows', 'dense'):.3e}, dist8 vs dense on the router's rows "
+          f"{d_same:.3e}")
+    require(d_same <= 1e-6 and abs(c8 - cs) <= 1e-6 * abs(cs),
+            f"dist_loop: window {first}, 8 shards part from the dense solver on the same rows by "
+            f"{d_same:.3e} (costs {c8:.6f} / {cs:.6f})")
+
+
+def dist_offline(dev) -> None:
+    """(d): the dry run's stage 2, the 10-frame 192x144 strafe (seed 4),
+    through 1 and 2 worker processes on the card and the in-process
+    chunker, on the kernel path and on the f32 path (the one the dry run
+    ran): the 2-worker stitch within 5e-3 of the in-process chunker on
+    both. The dry run's accuracy check, the truth's sign within 0.15 m, is
+    held at STRAFE_BAR on the displacement the images fix. fx = 380 on a
+    192-pixel sensor is a 28 degree view of a wall STRAFE_WALL_Z ahead, so
+    a strafe error e and a yaw error -e / STRAFE_WALL_Z move the image
+    alike; each frame's x error is -5.9 m x its yaw error in both packages
+    on the CPU, and the reference's own stitch misses the raw 0.15 m bar on
+    5 of 8 seeds (scripts/torch_dist_probe.py strafe, PERF.md). So dx +
+    STRAFE_WALL_Z x the yaw change is held for the stitch and the 1-worker
+    (serial) run; the raw dx and the dry run's verdict on it are printed.
+    Wall times reported: the workers share the card."""
+    import tempfile
+
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+    from zenslam_tpu_torch.parallel import run_offline_chunks, run_offline_multiprocess
+    from zenslam_tpu_torch.pipeline import SlamConfig
+
+    seq = make_sequence(np.random.default_rng(4), n_frames=10, width=192, height=144,
+                        motion="strafe", speed=0.5, device=dev)
+    cfg = SlamConfig(max_keypoints=192, max_landmarks=1024, pnp_iters=64, rigid_iters=64)
+
+    def dx_yaw(R, t):
+        """x-displacement of the camera centre and yaw change, last frame
+        against the first."""
+        c = np.einsum("kji,kj->ki", R, -t)
+        yaw = np.arctan2(R[:, 2, 0], R[:, 2, 2])
+        return float(c[-1, 0] - c[0, 0]), float(yaw[-1] - yaw[0])
+
+    gt_dx, gt_dyaw = dx_yaw(seq.R_lw, seq.t_lw)
+    gt_fixed = gt_dx + STRAFE_WALL_Z * gt_dyaw
+    for path, c in (("kernel", cfg), ("f32", cfg._replace(use_pallas_lk=False))):
+        wall, outs = {}, {}
+        with tempfile.TemporaryDirectory() as wd:
+            for n in (1, 2):
+                t0 = time.perf_counter()
+                outs[n] = run_offline_multiprocess(c, seq.rig, seq.left, seq.right, n_workers=n,
+                                                   overlap=3, workdir=f"{wd}/w{n}", device=dev,
+                                                   pin_cpus=False)
+                wall[n] = time.perf_counter() - t0
+        ref = run_offline_chunks(c, seq.rig, seq.left, seq.right, n_chunks=2, overlap=3,
+                                 device=dev)
+        out = outs[2]
+        d = float(np.abs(out["t_cw"] - ref["t_cw"]).max())
+        print(f"[dist_offline] {path} path, 2 worker processes on the card: bounds "
+              f"{out['bounds']}, against the in-process chunker max|dt| {d:.3e} m; wall time "
+              f"1 worker {wall[1]:.2f} s, 2 workers {wall[2]:.2f} s (process start, CUDA "
+              "context and 10 frames; reported, not a claim)")
+        require(np.isfinite(out["t_cw"]).all() and d < 5e-3,
+                f"dist_offline {path}: workers part from the in-process chunker by {d:.3e}")
+        for name, o in (("2-worker stitch", out), ("1 worker", outs[1])):
+            dx, dyaw = dx_yaw(o["R_cw"], o["t_cw"])
+            fixed = dx + STRAFE_WALL_Z * dyaw
+            raw_ok = np.sign(dx) == np.sign(gt_dx) and abs(dx - gt_dx) < 0.15
+            print(f"[dist_offline] {path} path, {name}: dx {dx:.4f} m, yaw change "
+                  f"{dyaw * 1e3:.3f} mrad, dx + {STRAFE_WALL_Z:g} m x yaw {fixed:.4f} m (truth "
+                  f"{gt_dx:.4f} / {gt_fixed:.4f}: error {fixed - gt_fixed:+.4f} m); the dry run's "
+                  f"check on the raw dx {'holds' if raw_ok else 'misses'} (error "
+                  f"{dx - gt_dx:+.4f} m)")
+            require(np.sign(fixed) == np.sign(gt_fixed) and abs(fixed - gt_fixed) < STRAFE_BAR,
+                    f"dist_offline {path} {name}: yaw-corrected dx {fixed:.4f} against the "
+                    f"truth's {gt_fixed:.4f} (bar {STRAFE_BAR})")
+
+
+def phase_dist(seq, dev, dense: dict) -> dict:
+    """The sharded BA (see the module docstring). Returns {path: launches}."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.pipeline import system
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    print(f"[dist] matmul allow_tf32 {tf32[0]}, float32 matmul precision {tf32[1]!r}")
+    require(not tf32[0] and tf32[1] == "highest", f"dist: matmuls not in full f32 {tf32}")
+    dist_solver_alone(dev)
+    paths = {}
+    for tag, n in (("dist", 0), ("dist8", 8)):
+        paths[tag], (a, kw) = dist_system_run(seq, n, dense, tag)
+    kw = dict(kw)
+    windows = {"dense": dict(kw, solver="dense", mesh=None)}
+    for n in (1, 8):
+        windows[f"dist{n}"] = dict(kw, mesh=system._live_ba_mesh(n, dev))
+    cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **v)
+                             for k, v in windows.items()}, pairs=5)
+    print(f"[dist] one windowed BA (the last keyframe's inputs, {kw['iterations']} LM steps) on "
+          f"{card_line()}: " + "; ".join(
+              f"{k} {c[0]} device kernels and copies, device busy {c[1]:.3f} ms, host "
+              f"{c[2]:.2f} ms" for k, c in cost.items())
+          + " (torch.profiler; host: medians of 5 alternating rounds)")
+    for k, ops in by_op.items():
+        print(f"[dist] {k}: device ms by operator (top 5): "
+              + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
+    paths["dist_loop"] = dist_loop(dev)
+    dist_offline(dev)
+    print(f"[dist] phase {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="DIR",
@@ -1896,8 +2413,9 @@ def main() -> int:
         seq, xy, valid = render_inputs(dev)
         lk = phase_lk(seq, xy, valid, dev, compare)
         orb = phase_orb(seq, xy, valid, dev, compare)
-        paths = {"slice": phase_slice(seq, dev), "system": phase_system(seq, dev),
-                 "loop": phase_loop(dev)}
+        paths = {"slice": phase_slice(seq, dev)}
+        paths["system"], dense = phase_system(seq, dev)
+        paths["loop"] = phase_loop(dev)
         paths["kidnap"] = phase_kidnap(dev)
         app_paths, app_lk_err = phase_app(dev)
         paths.update(app_paths)
@@ -1905,10 +2423,16 @@ def main() -> int:
         lines_paths, lines_lk_err = phase_lines(dev)
         paths.update(lines_paths)
         paths.update(phase_families(seq, dev))
+        paths.update(phase_dist(seq, dev, dense))
         lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        import torch.distributed as tdist
+
+        if tdist.is_initialized():     # the one-rank NCCL group of the dist phase
+            tdist.destroy_process_group()
     for k in (lk, orb):
         k["launches"] = paths["system"][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}

@@ -24,8 +24,8 @@ The size: at 256x192 both packages track this sequence with frame-to-frame
 pose noise far above 2 mm (the same in both), so two free runs with
 different random draws cannot agree to 2 mm there; at 384x288 both do.
 
-Also the guards: --viz (item 18), ba_solver dist (item 17), and no CUDA
-without --device; and the keylines recipe (options/euroc_mh_lines.yaml)
+Also the --viz guard (item 18), ``backend.ba_solver: dist`` against the
+dense solver on the folder's first frames, and no CUDA without --device; and the keylines recipe (options/euroc_mh_lines.yaml)
 builds a system that steps a frame with keylines.
 """
 
@@ -52,6 +52,7 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 DIST = [-0.05, 0.01, 1e-4, -1e-4]
 N_FRAMES = 14
+DIST_TAKE = 4            # frames of the app's ba_solver: dist run (one BA run)
 W, H = 384, 288
 IMU_NOISE = {"gyroscope_noise_density": 1.2e-4, "accelerometer_noise_density": 2.1e-3,
              "gyroscope_random_walk": 2.0e-5, "accelerometer_random_walk": 3.0e-4}
@@ -215,16 +216,35 @@ def test_checker_passes_and_fails(runs, tmp_path):
     (["--viz"], {}, {}, {}, "item 18"),
     (["--no-imu"], {}, {}, dict(ba_solver="dist"), "item 17"),
 ])
-def test_unported_paths_raise(datasets, extra, folder, slam, backend, match):
+def test_unported_paths_raise(datasets, capsys, extra, folder, slam, backend, match):
+    """--viz (item 18) raises; ``backend.ba_solver: dist`` (item 17, ported)
+    runs the app on the fixture's folder over the first DIST_TAKE frames
+    (two keyframes, one BA run) within 2e-3 m of the dense run's
+    trajectory on the same frames."""
     from zenslam_tpu_torch.app import main
 
-    path = Path(_options(datasets, datasets / "ref", "out_guard", **folder))
-    opts = yaml.safe_load(path.read_text())
-    opts["slam"].update(slam)
-    opts["backend"].update(backend)
-    path.write_text(yaml.safe_dump(opts))
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--options-file", str(path), "--device", "cpu", *extra])
+    def run(out, backend):
+        path = Path(_options(datasets, datasets / "ref", out, **folder))
+        opts = yaml.safe_load(path.read_text())
+        opts["slam"].update(slam)
+        opts["backend"].update(backend)
+        path.write_text(yaml.safe_dump(opts))
+        return main(["--options-file", str(path), "--device", "cpu", *extra])
+
+    if match == "item 18":
+        with pytest.raises(NotImplementedError, match=match):
+            run("out_guard", backend)
+        return
+    extra = [*extra, "--take", str(DIST_TAKE), "--no-scene"]
+    trajectories = {}
+    for out, bk in (("out_dist", backend), ("out_dense", dict(ba_solver="dense"))):
+        capsys.readouterr()
+        assert run(out, bk) == 0
+        printed = capsys.readouterr().out
+        assert "BA runs: 1," in printed, printed
+        trajectories[out] = np.loadtxt(datasets / out / "trajectory.csv", delimiter=",")
+    assert trajectories["out_dist"].shape == (DIST_TAKE, 4)
+    np.testing.assert_allclose(trajectories["out_dist"], trajectories["out_dense"], atol=2e-3)
 
 
 def test_keylines_recipe_loads_and_system_raises():

@@ -149,13 +149,17 @@ def test_bal_subset_matches_reference(solver, refine):
     checks. The problem converges to ~1e-5 px in 2-3 steps, after which
     accepting a step compares costs equal to f32 rounding, so n_accepted
     is not compared."""
-    from zenslam_tpu.io.bal import bal_subset_ba_problem, make_synthetic_bal
+    from zenslam_tpu.io import bal as jbal
+    from zenslam_tpu_torch.io import bal as pbal
 
-    jp, info = bal_subset_ba_problem(make_synthetic_bal(n_cameras=6, n_points=400, seed=7))
+    jp, info = jbal.bal_subset_ba_problem(jbal.make_synthetic_bal(n_cameras=6, n_points=400,
+                                                                  seed=7))
+    pp, _ = pbal.bal_subset_ba_problem(pbal.make_synthetic_bal(n_cameras=6, n_points=400,
+                                                               seed=7), device="cpu")
     if refine:
         d = np.random.default_rng(3).normal(0, 0.01, jp.xyz.shape).astype(np.float32)
         jp = jp._replace(xyz=jp.xyz + jnp.asarray(d))
-    pp = ba.BAProblem(**{k: _t(v) for k, v in _np(jp)._asdict().items()})
+        pp = pp._replace(xyz=pp.xyz + torch.from_numpy(d))
     jfn, pfn = ((jba.bundle_adjust, ba.bundle_adjust) if solver == "dense"
                 else (jba.bundle_adjust_cg, ba.bundle_adjust_cg))
     jr, pr = _np(jfn(jp, iterations=12, refine_landmarks=refine)), \

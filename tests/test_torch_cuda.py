@@ -23,7 +23,9 @@ ORB per frame. The other detector and descriptor families (Harris, DoG,
 SIFT, FREAK, the float matcher and the LSH codes) agree with the CPU with
 no synchronise on the card, and ``describe_refresh=4`` launches 2 LK and 1
 ORB per frame, the ORB kernel's ``needs`` rows bit-identical to a full pass;
-the app runs a family on the card by default.
+the app runs a family on the card by default. The sharded BA's device
+router gives the CPU's arrays, and its 8-shard solve over a one-rank NCCL
+group is within 1e-4 of the CPU's over gloo, with no synchronise.
 """
 
 import numpy as np
@@ -710,3 +712,54 @@ def test_app_runs_a_family_on_card(dev, tmp_path):
     assert orb_cuda.orb_steered_brief.launches == orb0
     rows = (tmp_path / "out" / "trajectory.csv").read_text().strip().splitlines()
     assert len(rows) >= 6
+
+
+@pytest.fixture(scope="module")
+def ba_meshes():
+    """8-shard meshes on one rank: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as tdist
+
+    from zenslam_tpu_torch.parallel import dist_ba
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    made = not tdist.is_initialized()
+    if made:
+        cuda = dist_ba.make_ba_mesh(8, device=dev)
+    else:
+        cuda = dist_ba.make_ba_mesh(8, group=tdist.new_group(backend="nccl"), device=dev)
+    cpu = dist_ba.make_ba_mesh(8, group=tdist.new_group(backend="gloo"), device="cpu")
+    assert tdist.get_backend(cuda.group) == "nccl"
+    yield cuda, cpu
+    if made:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dist_ba_on_card_matches_cpu_without_syncs(ba_meshes):
+    """The device router on the card gives the CPU's arrays; the 8-shard
+    solve over the one-rank NCCL mesh is within 1e-4 of the CPU's over
+    gloo, and neither makes an implicit synchronise on the card."""
+    from zenslam_tpu_torch.parallel import dist_ba
+
+    cuda, cpu = ba_meshes
+    p = _ba_problem(cuda.device)
+    O = p.obs_kf.shape[0]
+    for ops in (2 * -(-O // 8), 64):
+        ps, n_drop = _no_syncs(dist_ba.shard_ba_problem_device, p, 8, ops)
+        qs, q_drop = dist_ba.shard_ba_problem_device(_to(p, "cpu"), 8, ops)
+        assert int(n_drop) == int(q_drop)
+        for name in ps._fields:
+            assert torch.equal(getattr(ps, name).cpu(), getattr(qs, name)), name
+    ps, _ = dist_ba.shard_ba_problem_device(p, 8, 2 * -(-O // 8))
+    dist_ba.dist_bundle_adjust(ps, cuda, iterations=1)       # the communicator's first use
+    gpu = _no_syncs(dist_ba.dist_bundle_adjust, ps, cuda, iterations=4)
+    cpu_r = dist_ba.dist_bundle_adjust(_to(ps, "cpu"), cpu, iterations=4)
+    for k in ("R", "t"):
+        assert (gpu[k].cpu() - cpu_r[k]).abs().max().item() <= 1e-4, k
+    rel = (gpu["xyz"].cpu() - cpu_r["xyz"]).norm(dim=-1) / cpu_r["xyz"].norm(dim=-1).clamp(min=1.0)
+    assert rel.max().item() <= 1e-3
+    assert float(gpu["cost_after"]) < 0.1 * float(gpu["cost_before"])
+    dense = ba.bundle_adjust(p, iterations=4)
+    assert (gpu["t"] - dense["t"]).abs().max().item() <= 5e-3

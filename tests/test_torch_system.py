@@ -19,8 +19,10 @@ retrained at the 4th keyframe and loop gates loose enough to fire) serves:
   same keyframe frames and BA count, and a keyframe ATE within 2 mm.
 
 Also: the orbit render, lagged telemetry bit-identical to synchronous with
-the back end off, the runner's two modes, the demo, the unported settings
-raising, the CUDA default, and no module of the port importing JAX.
+the back end off, the runner's two modes, the demo, the once-unported
+settings building a system, the CUDA default, no module of the port
+importing JAX, and the live ``ba_solver="dist"`` windowed BA teacher-forced
+on the captured system against the reference's at 8 shards.
 """
 
 import copy
@@ -211,6 +213,43 @@ def test_reloc_query_matches_reference(seq, reference):
     np.testing.assert_allclose(p[3 * k:], jp[3 * k:], atol=1e-4)
 
 
+def test_windowed_dist_ba_teacher_forced(seq, reference):
+    """The live ``ba_solver="dist"`` windowed BA at 8 shards on the captured
+    system, against the reference's ``_windowed_ba_jit`` on its 8-device
+    mesh: keyframe poses, the live pose and [rmse_before, rmse_after,
+    dropped] within 1e-4, the map's xyz within 1e-3 relative. The window
+    was adjusted at the previous keyframe, so its newest keyframe is moved
+    by ~1 cm first (in both), to give the solve work."""
+    from zenslam_tpu.parallel.dist_ba import make_ba_mesh
+
+    before = copy.copy(reference[2]["before"])
+    db = before.kf_db
+    newest = int(np.argmax(np.where(db.valid, db.frame_idx, -1)))
+    t = db.t.copy()
+    t[newest] += np.array([0.01, -0.005, 0.004], np.float32)
+    before.kf_db = db._replace(t=t)
+    H, W = seq.left[0].shape
+    ps = convert.system_from_numpy(before, "cpu", image_shape=(H, W))
+    bc = ps.bcfg
+    lm, st = ps.state.lmap, ps.state
+    out = psystem._windowed_ba(ps.kf_db, lm.xyz, lm.valid, lm.generation, st.R_cw, st.t_cw,
+                               ps.rig, W=bc.ba_window, solver="dist",
+                               iterations=bc.ba_iterations,
+                               mesh=psystem._live_ba_mesh(8, torch.device("cpu")))
+    jdb, jst, jrig = (jax.tree.map(jnp.asarray, x) for x in (before.kf_db, before.state,
+                                                             before.rig))
+    jout = jsystem._windowed_ba_jit(jdb, jst.lmap.xyz, jst.lmap.valid, jst.lmap.generation,
+                                    jst.R_cw, jst.t_cw, jrig,
+                                    W=bc.ba_window, solver="dist", iterations=bc.ba_iterations,
+                                    mesh=make_ba_mesh(8))
+    (R, t, xyz, R_cur, t_cur, rmse), jo = (x.numpy() for x in out), [np.asarray(x) for x in jout]
+    for a, b in zip((R, t, R_cur, t_cur, rmse), (jo[0], jo[1], jo[3], jo[4], jo[5])):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert rmse[1] < 0.5 * rmse[0] and rmse[2] == 0
+    assert (np.linalg.norm(xyz - jo[2], axis=-1)
+            <= 1e-3 * np.maximum(np.linalg.norm(jo[2], axis=-1), 1.0)).all()
+
+
 def test_free_running_system(seq, reference):
     js, jtel, _ = reference
     prig = convert.rig_from_numpy(_copy(seq.rig), "cpu")
@@ -287,20 +326,26 @@ def test_runner_modes_and_demo(small, capsys):
     assert np.isfinite(ate) and fps > 0 and "ATE" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("bcfg,cfg,match", [
-    (dict(ba_solver="dist"), {}, "item 17"),
+@pytest.mark.parametrize("bcfg,cfg,item", [
+    (dict(ba_solver="dist", dist_devices=8), {}, "item 17"),
     ({}, dict(descriptor="sift"), None),
 ])
-def test_unported_settings_raise(bcfg, cfg, match):
+def test_unported_settings_raise(bcfg, cfg, item):
+    """The settings that raised before their slices were ported now build
+    a system: ``ba_solver="dist"`` (item 17) with its 8-shard live mesh on
+    a one-rank gloo group, and the SIFT family; an unknown solver raises."""
     rig = port_synthetic.default_rig(64, 64, device="cpu")
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig,
+    s = psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig, (64, 64),
+                              device="cpu")
+    if item == "item 17":
+        mesh = psystem._live_ba_mesh(s.bcfg.dist_devices, s.device)
+        assert (mesh.n_shards, mesh.local_shards, mesh.device) == (8, 8, torch.device("cpu"))
+        assert torch.distributed.get_backend(mesh.group) == "gloo"
+        with pytest.raises(ValueError, match="unknown ba_solver"):
+            psystem.create_system(SlamConfig(), psystem.BackendConfig(ba_solver="sparse"), rig,
                                   (64, 64), device="cpu")
         return
     # the SIFT family is ported: float tables live, binary codes in the DB
-    s = psystem.create_system(SlamConfig(**cfg), psystem.BackendConfig(**bcfg), rig, (64, 64),
-                              device="cpu")
     assert s.state.features.desc.shape == (512, 128)
     assert s.state.features.desc.dtype == torch.float32
     assert s.archive.desc.dtype == np.float32 and s.archive.desc.shape[1:] == (128,)
@@ -336,8 +381,10 @@ def test_no_module_of_the_port_imports_jax():
             "zenslam_tpu_torch.native.loader", "zenslam_tpu_torch.imu.preintegration",
             "zenslam_tpu_torch.imu.continuous", "zenslam_tpu_torch.imu.gravity",
             "zenslam_tpu_torch.imu.predictors", "zenslam_tpu_torch.estimation.fusion",
-            "zenslam_tpu_torch.ops.lines", "zenslam_tpu_torch.pipeline.lines_step"
-            } <= set(names)
+            "zenslam_tpu_torch.ops.lines", "zenslam_tpu_torch.pipeline.lines_step",
+            "zenslam_tpu_torch.parallel.dist_ba", "zenslam_tpu_torch.parallel.multihost",
+            "zenslam_tpu_torch.parallel.offline", "zenslam_tpu_torch.parallel.offline_worker",
+            "zenslam_tpu_torch.io.bal"} <= set(names)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

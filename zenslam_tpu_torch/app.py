@@ -20,8 +20,11 @@ keylines recipe) runs the keyline branch; ``slam.detector`` (``fast``,
 ``slam.describe_refresh`` pick the front end's families. Runs on CUDA unless ``--device
 cpu`` is given; with no CUDA device and no ``--device`` it raises.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md item:
-``--viz`` (item 18) and ``backend.ba_solver: dist`` (item 17).
+``backend.ba_solver: dist`` runs the windowed BA sharded (``parallel/``;
+``backend.dist_devices`` shards, all on this process).
+
+Not ported yet, raising NotImplementedError naming its ROADMAP.md item:
+``--viz`` (item 18).
 """
 
 from __future__ import annotations

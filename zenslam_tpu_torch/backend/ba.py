@@ -94,11 +94,18 @@ def seg_add_(out, idx, vals):
     return out.index_add_(0, idx, vals)
 
 
-def _seg_sum(n: int, idx, vals):
+def _seg_sum(n: int, idx, vals, keep=None):
     """(n, ...) sums of ``vals`` rows grouped by ``idx`` (the reference's
-    ``zeros.at[idx].add``)."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return seg_add_(out, idx, vals)
+    ``zeros.at[idx].add``). Rows where ``keep`` is False add nothing and go
+    to sink rows past n, one each, cut off after: on CUDA ``seg_add_`` sums
+    the rows sharing an index one after another, so thousands of padding
+    rows on one index (the sharded router's) would serialise."""
+    n_out = n
+    if keep is not None:
+        n_out = n + idx.shape[0]
+        idx = torch.where(keep, idx, torch.arange(n, n_out, dtype=idx.dtype, device=idx.device))
+    out = torch.zeros((n_out,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
+    return seg_add_(out, idx, vals)[:n]
 
 
 def _residuals_and_weights(p: BAProblem, R, t, xyz, huber_delta: float):
@@ -174,12 +181,13 @@ def _build_blocks(p: BAProblem, R, t, xyz, huber_delta: float):
     r, w, kf, lm, Jp, Jl = _obs_jacobians(p, R, t, xyz, huber_delta)
     Jp_w = Jp * w[:, None, None]
     Jl_w = Jl * w[:, None, None]
-    U = _seg_sum(K, kf, torch.einsum("oai,oaj->oij", Jp_w, Jp))
-    g_p = _seg_sum(K, kf, -torch.einsum("oai,oa->oi", Jp_w, r))
-    V = _seg_sum(M, lm, torch.einsum("oai,oaj->oij", Jl_w, Jl))
-    g_l = _seg_sum(M, lm, -torch.einsum("oai,oa->oi", Jl_w, r))
+    live = w != 0       # zero-weight rows (invalid, padding, behind the camera) add 0
+    U = _seg_sum(K, kf, torch.einsum("oai,oaj->oij", Jp_w, Jp), live)
+    g_p = _seg_sum(K, kf, -torch.einsum("oai,oa->oi", Jp_w, r), live)
+    V = _seg_sum(M, lm, torch.einsum("oai,oaj->oij", Jl_w, Jl), live)
+    g_l = _seg_sum(M, lm, -torch.einsum("oai,oa->oi", Jl_w, r), live)
     Wb = torch.einsum("oai,oaj->oij", Jp_w, Jl)
-    A = _seg_sum(M * K, lm * K + kf, Wb).reshape(M, K, 6, 3)
+    A = _seg_sum(M * K, lm * K + kf, Wb, live).reshape(M, K, 6, 3)
     return U, g_p, V, g_l, A
 
 
@@ -207,19 +215,23 @@ def _block_diag(D):
     return torch.einsum("kab,kl->kalb", D, torch.eye(K, dtype=D.dtype, device=D.device))
 
 
-def _schur_reduce(U, g_p, V, g_l, A, lm_active, lam):
-    """Eliminate landmarks: dense reduced camera system (6K, 6K), rhs (6K,),
-    V⁻¹ and B = A V⁻¹."""
-    K = U.shape[0]
+def _eliminate_landmarks(V, g_l, A, lm_active, lam):
+    """Landmark elimination: V⁻¹ of the damped V (identity where a landmark
+    is inactive), and the reduced camera system's off-diagonal part S_off
+    (K, 6, K, 6) and rhs part g_off (K, 6), before assembly (the sharded
+    solver sums them over the shards first)."""
     eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
-    Vd = torch.where(lm_active[:, None, None], V + lam * eye3, eye3)
-    Vinv = _inv3x3(Vd)
+    Vinv = _inv3x3(torch.where(lm_active[:, None, None], V + lam * eye3, eye3))
     B = torch.einsum("mkab,mbc->mkac", A, Vinv)
-    S_off = torch.einsum("mkac,mldc->kald", B, A)
-    g_off = torch.einsum("mkac,mc->ka", B, g_l)
+    return Vinv, torch.einsum("mkac,mldc->kald", B, A), torch.einsum("mkac,mc->ka", B, g_l)
+
+
+def _reduced_system(U, g_p, S_off, g_off, lam):
+    """The dense reduced camera system (6K, 6K) and its rhs (6K,)."""
+    K = U.shape[0]
     Ud = U + lam * torch.eye(6, dtype=U.dtype, device=U.device)
     S = _block_diag(Ud) - S_off
-    return S.reshape(K * 6, K * 6), (g_p - g_off).reshape(K * 6), Vinv, B
+    return S.reshape(K * 6, K * 6), (g_p - g_off).reshape(K * 6)
 
 
 def _apply_gauge(S, rhs, free_mask6):
@@ -246,20 +258,57 @@ def _inv6x6_chol(U):
     return inv_spd(U + 1e-8 * torch.eye(6, dtype=U.dtype, device=U.device))
 
 
-def _lm_update(p, R, t, xyz, d_pose, d_lm, lam, cost, huber_delta):
+def _lm_update(R, t, xyz, d_pose, d_lm, lam, cost, cost_fn):
     """Apply a left-multiplicative pose step and a landmark step; keep them
-    where the robust cost falls, and adapt the damping."""
+    where the robust cost ``cost_fn(R, t, xyz)`` falls, and adapt the
+    damping."""
     dR = so3_exp(d_pose[:, 3:])
     R_new = dR @ R
     t_new = torch.einsum("kij,kj->ki", dR, t) + d_pose[:, :3]
     xyz_new = xyz + d_lm
-    new_cost, _ = ba_cost(p, R_new, t_new, xyz_new, huber_delta)
+    new_cost = cost_fn(R_new, t_new, xyz_new)
     accept = new_cost < cost
     return (torch.where(accept, R_new, R), torch.where(accept, t_new, t),
             torch.where(accept, xyz_new, xyz), torch.where(accept, new_cost, cost),
             torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
                         torch.clamp(lam * 4.0, max=1e3)),
             accept)
+
+
+def lm_schur(p: BAProblem, cost0, cost_fn, iterations: int, huber_delta: float,
+             refine_landmarks: bool, init_lambda: float, all_sum=None):
+    """The LM-damped Schur loop of ``bundle_adjust``, shared with the sharded
+    solver (``parallel/dist_ba.py``). ``p`` is the whole problem, or one
+    rank's block of landmarks and their observations; then ``all_sum(U,
+    g_p, S_off, g_off)`` sums the reduced camera system's parts over the
+    ranks and ``cost_fn(R, t, xyz)`` returns the summed cost (``cost0``
+    the initial one). Every rank then solves the same system. Returns (R,
+    t, xyz, cost, n_accepted) with device-resident values: no host read."""
+    K = p.R.shape[0]
+    free_kf = p.kf_valid & ~p.kf_fixed
+    free_mask6 = free_kf.repeat_interleave(6)
+    R, t, xyz, cost = p.R, p.t, p.xyz, cost0
+    lam = torch.full((), init_lambda, dtype=torch.float32, device=p.R.device)
+    accepts = []
+    for _ in range(iterations):
+        U, g_p, V, g_l, A = _build_blocks(p, R, t, xyz, huber_delta)
+        if refine_landmarks:
+            Vinv, S_off, g_off = _eliminate_landmarks(V, g_l, A, p.lm_valid, lam)
+        else:
+            S_off = torch.zeros((K, 6, K, 6), dtype=U.dtype, device=U.device)
+            g_off = torch.zeros((K, 6), dtype=U.dtype, device=U.device)
+        if all_sum is not None:
+            U, g_p, S_off, g_off = all_sum(U, g_p, S_off, g_off)
+        S, rhs = _apply_gauge(*_reduced_system(U, g_p, S_off, g_off, lam), free_mask6)
+        d_pose = cholesky_solve_or_zero(S, rhs).reshape(K, 6) * free_kf[:, None]
+        if refine_landmarks:    # back-substitution, local to the landmarks' block
+            At_dp = torch.einsum("mkab,ka->mb", A, d_pose)
+            d_lm = torch.einsum("mbc,mc->mb", Vinv, g_l - At_dp) * p.lm_valid[:, None]
+        else:
+            d_lm = torch.zeros_like(xyz)
+        R, t, xyz, cost, lam, acc = _lm_update(R, t, xyz, d_pose, d_lm, lam, cost, cost_fn)
+        accepts.append(acc)
+    return R, t, xyz, cost, _count(accepts, p.R.device)
 
 
 def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
@@ -271,6 +320,10 @@ def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
     contract as ``bundle_adjust``."""
     K, M = p.R.shape[0], p.xyz.shape[0]
     cost0, rmse0 = ba_cost(p, huber_delta=huber_delta)
+
+    def cost_fn(R, t, xyz):
+        return ba_cost(p, R, t, xyz, huber_delta)[0]
+
     free_kf = p.kf_valid & (~p.kf_fixed)
     fmask = free_kf[:, None].to(p.R.dtype)
     eye3 = torch.eye(3, dtype=p.R.dtype, device=p.R.device)
@@ -334,8 +387,8 @@ def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
             d_lm = torch.einsum("mbc,mc->mb", Vinv, g_l - s) * lm_active[:, None]
         else:
             d_lm = torch.zeros_like(xyz)
-        R, t, xyz, cost, lam, acc = _lm_update(p, R, t, xyz, d_pose, d_lm, lam, cost,
-                                               huber_delta)
+        R, t, xyz, cost, lam, acc = _lm_update(R, t, xyz, d_pose, d_lm, lam, cost,
+                                               cost_fn)
         accepts.append(acc)
     _, rmse1 = ba_cost(p, R, t, xyz, huber_delta=huber_delta)
     return {"R": R, "t": t, "xyz": xyz, "rmse_before": rmse0, "rmse_after": rmse1,
@@ -373,36 +426,10 @@ def bundle_adjust(p: BAProblem, iterations: int = 15, huber_delta: float = 1.0,
         return dict(second, rmse_before=first["rmse_before"],
                     n_trimmed=good.sum() - keep.sum())
 
-    K = p.R.shape[0]
     cost0, rmse0 = ba_cost(p, huber_delta=huber_delta)
-    free_kf = p.kf_valid & (~p.kf_fixed)
-    free_mask6 = free_kf.repeat_interleave(6)
-    eye3 = torch.eye(3, dtype=p.R.dtype, device=p.R.device)
-    lm_active = p.lm_valid if refine_landmarks else torch.zeros_like(p.lm_valid)
-    R, t, xyz = p.R, p.t, p.xyz
-    lam = torch.full((), init_lambda, dtype=torch.float32, device=p.R.device)
-    cost = cost0
-    accepts = []
-    for _ in range(iterations):
-        U, g_p, V, g_l, A = _build_blocks(p, R, t, xyz, huber_delta)
-        if refine_landmarks:
-            S, rhs, Vinv, _ = _schur_reduce(U, g_p, V, g_l, A, lm_active, lam)
-        else:
-            Ud = U + lam * torch.eye(6, dtype=U.dtype, device=U.device)
-            S = _block_diag(Ud).reshape(K * 6, K * 6)
-            rhs = g_p.reshape(K * 6)
-        S, rhs = _apply_gauge(S, rhs, free_mask6)
-        dx = cholesky_solve_or_zero(S, rhs)
-        d_pose = dx.reshape(K, 6) * free_kf[:, None]
-        if refine_landmarks:
-            At_dp = torch.einsum("mkab,ka->mb", A, d_pose)
-            d_lm = torch.einsum("mbc,mc->mb", Vinv, g_l - At_dp) * p.lm_valid[:, None]
-        else:
-            d_lm = torch.zeros_like(xyz)
-        R, t, xyz, cost, lam, acc = _lm_update(p, R, t, xyz, d_pose, d_lm, lam, cost,
-                                               huber_delta)
-        accepts.append(acc)
+    R, t, xyz, cost, n_acc = lm_schur(
+        p, cost0, lambda R, t, xyz: ba_cost(p, R, t, xyz, huber_delta)[0], iterations,
+        huber_delta, refine_landmarks, init_lambda)
     _, rmse1 = ba_cost(p, R, t, xyz, huber_delta=huber_delta)
     return {"R": R, "t": t, "xyz": xyz, "rmse_before": rmse0, "rmse_after": rmse1,
-            "cost_before": cost0, "cost_after": cost,
-            "n_accepted": _count(accepts, p.R.device)}
+            "cost_before": cost0, "cost_after": cost, "n_accepted": n_acc}

@@ -26,6 +26,7 @@ vocabulary retrain keeps the reference's numpy draw.
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import Counter
 from dataclasses import dataclass, field
@@ -34,7 +35,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from zenslam_tpu_torch.backend.ba import bundle_adjust, bundle_adjust_cg
+from zenslam_tpu_torch.backend.ba import ba_cost, bundle_adjust, bundle_adjust_cg
 from zenslam_tpu_torch.backend.bow import (
     BowDatabase, bow_db_add, bow_db_init, bow_db_query, build_vocabulary,
     build_vocabulary_tree, descriptors_to_bow, generator_draw, load_vocabulary)
@@ -47,6 +48,8 @@ from zenslam_tpu_torch.estimation.ransac import gumbel
 from zenslam_tpu_torch.geometry.camera import StereoRig
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse
 from zenslam_tpu_torch.ops.match import lsh_binarize, match_descriptors
+from zenslam_tpu_torch.parallel.dist_ba import (
+    dist_bundle_adjust, make_ba_mesh, shard_ba_problem_device)
 from zenslam_tpu_torch.pipeline.state import (
     MotionModel, SlamConfig, SlamState, init_state, pack_telemetry, resolve_device,
     unpack_telemetry)
@@ -65,8 +68,8 @@ class BackendConfig:
     ba_window: int = 8
     ba_iterations: int = 6
     ba_every_kf: bool = True
-    ba_solver: str = "auto"         # "dense", "cg", "auto" (cg above 16 keyframes); no "dist"
-    dist_devices: int = 0
+    ba_solver: str = "auto"         # "dense", "cg", "auto" (cg above 16 keyframes), "dist"
+    dist_devices: int = 0           # "dist" shards: 0 = one per rank of the group (1 on the card)
     enable_loop_closure: bool = True
     bow_levels: int = 2
     bow_branch: int = 64
@@ -95,13 +98,8 @@ class BackendConfig:
 
 
 def check_backend_supported(cfg: SlamConfig, bcfg: BackendConfig) -> None:
-    """Raise NotImplementedError for settings this port does not run yet,
-    naming the ROADMAP.md item that will port them."""
-    if bcfg.ba_solver == "dist":
-        raise NotImplementedError(
-            "ba_solver='dist' is not ported to zenslam_tpu_torch yet, see ROADMAP.md "
-            "Queue 1 item 17 (parallel/dist_ba.py)")
-    if bcfg.ba_solver not in ("auto", "dense", "cg"):
+    """Raise ValueError for a back-end setting no solver answers to."""
+    if bcfg.ba_solver not in ("auto", "dense", "cg", "dist"):
         raise ValueError(f"unknown ba_solver {bcfg.ba_solver!r}")
 
 
@@ -261,17 +259,24 @@ def _apply_pose_correction(state: SlamState, R_old, t_old, R_new, t_new) -> Slam
 
 
 def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig,
-                 W: int, solver: str, iterations: int):
-    """The windowed BA step: compact to the W newest keyframes and to the
-    landmarks they reference (at most 4N), solve, write poses and landmarks
-    back, and correct the live pose by the newest keyframe's change.
-    Returns (R, t, lmap xyz, R_cur, t_cur, [rmse_before, rmse_after,
-    n_dropped_obs])."""
+                 W: int, solver: str, iterations: int, mesh=None):
+    """The windowed BA step (the reference's ``_windowed_ba_jit``): compact
+    to the W newest keyframes and to the landmarks they reference (at most
+    4N, rounded up to a shard multiple for ``solver="dist"``, which shards
+    them over ``mesh``), solve, write poses and landmarks back, and correct
+    the live pose by the newest keyframe's change. Returns (R, t, lmap xyz,
+    R_cur, t_cur, [rmse_before, rmse_after, n_dropped_obs])."""
     slots = newest_first(db.frame_idx)[:W]
     sub = KeyframeDB(*(x[slots] for x in db[:-1]), next_slot=db.next_slot)
     p = ba_problem_from_db(sub, lmap_xyz, lmap_valid, rig, lmap_generation=lmap_gen)
     M = lmap_xyz.shape[0]
     M_ba = min(M, 4 * db.kp_lm.shape[1])
+    if solver == "dist":
+        # the block-sharded landmark dimension must divide over the mesh
+        n_sh = mesh.n_shards
+        M_ba = min(M, -(-M_ba // n_sh) * n_sh)
+        if M_ba % n_sh:
+            raise ValueError(f"map capacity {M} not shardable over {n_sh}")
     ref = torch.zeros(M + 1, dtype=torch.bool, device=lmap_xyz.device)
     ref.index_fill_(0, torch.where(p.obs_valid, p.obs_lm, M).long(), True)
     ref = ref[:M] & p.lm_valid
@@ -282,7 +287,18 @@ def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig
     obs_ok = p.obs_valid & (new_obs_lm < M_ba)
     pc = p._replace(xyz=p.xyz[sel], lm_valid=ref[sel], obs_lm=new_obs_lm.clamp(0, M_ba - 1),
                     obs_valid=obs_ok)
-    if solver == "cg":
+    if solver == "dist":
+        # landmark blocks sharded over the mesh, Schur elimination per shard,
+        # the reduced camera system all-reduced; the route-drop count is
+        # discarded, as the reference does (ROADMAP "Reference faults")
+        O = pc.obs_kf.shape[0]
+        obs_per_shard = O if n_sh == 1 else min(O, 2 * (-(-O // n_sh)))
+        ps, _n_route_drop = shard_ba_problem_device(pc, n_sh, obs_per_shard)
+        res = dist_bundle_adjust(ps, mesh, iterations=iterations)
+        _, rmse0 = ba_cost(pc)
+        _, rmse1 = ba_cost(pc, res["R"], res["t"], res["xyz"])
+        res = dict(res, rmse_before=rmse0, rmse_after=rmse1)
+    elif solver == "cg":
         res = bundle_adjust_cg(pc, iterations=iterations)
     else:
         res = bundle_adjust(pc, iterations=iterations)
@@ -299,6 +315,18 @@ def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig
     return new_R, new_t, new_xyz, R_cur, t_cur, rmse
 
 
+@functools.lru_cache(maxsize=4)
+def _live_ba_mesh(n_shards: int, device: torch.device):
+    """The mesh of the live ``ba_solver="dist"`` path: ``n_shards`` shards
+    (0: one per rank), all on this rank. Cached per (n_shards, device), as
+    the reference caches its mesh."""
+    mesh = make_ba_mesh(n_shards or None, device=device)
+    if mesh.local_shards != mesh.n_shards:
+        raise ValueError("the live dist BA holds every shard on one rank; the default "
+                         f"process group has {mesh.n_shards // mesh.local_shards} ranks")
+    return mesh
+
+
 def _run_windowed_ba(sys: SlamSystem):
     """Windowed BA over the most recent keyframes, written back. Returns the
     (rmse_before, rmse_after, n_dropped_obs) device tensor, unread."""
@@ -306,10 +334,11 @@ def _run_windowed_ba(sys: SlamSystem):
     solver = sys.bcfg.ba_solver
     if solver == "auto":
         solver = "cg" if W > 16 else "dense"
+    mesh = _live_ba_mesh(sys.bcfg.dist_devices, sys.device) if solver == "dist" else None
     lmap = sys.state.lmap
     new_R, new_t, new_xyz, R_cur, t_cur, rmse = _windowed_ba(
         sys.kf_db, lmap.xyz, lmap.valid, lmap.generation, sys.state.R_cw, sys.state.t_cw,
-        sys.rig, W=W, solver=solver, iterations=sys.bcfg.ba_iterations)
+        sys.rig, W=W, solver=solver, iterations=sys.bcfg.ba_iterations, mesh=mesh)
     sys.kf_db = sys.kf_db._replace(R=new_R, t=new_t)
     sys.state = sys.state._replace(R_cw=R_cur, t_cw=t_cur, lmap=lmap._replace(xyz=new_xyz))
     sys.n_ba_runs += 1
