@@ -38,7 +38,17 @@ Phases (each one fatal on failure):
    run (one as it is, one under ``torch.use_deterministic_algorithms``)
    print how far each window's rmse_before differs from the timed run's,
    and every window's robust cost, rmse and five worst residuals
-   (keyframe, landmark, px) before and after BA;
+   (keyframe, landmark, px) before and after BA. Then ``system_cg``: the
+   same run with ``ba_window=24`` and ``ba_solver="auto"``, which resolves
+   to the matrix-free CG solver above 16 keyframes (every window recorded
+   as CG, the dense solver never called): the dense run's keyframe count, a
+   BA run on every keyframe after the first with rmse_after <= 1.05
+   rmse_before, ATE < 0.05 m, pose_ok >= 0.9, 2 LK + 1 ORB launches per
+   timed frame, no implicit synchronise in ``backend/ba.py`` or
+   ``system._windowed_ba``; the medians of ``ba_dispatch`` and
+   ``backend_ms`` beside the dense run's, and one window on the last
+   keyframe's inputs through both solvers (``torch.profiler`` kernels and
+   busy ms, host ms);
 7. loop: the 64-frame 320x240 orbit of ``tests/test_loop_closure.py``
    (seed 21, pixel noise 0.01, radius 1.0, host render) through
    ``run_system`` twice, loop closure off and on with that test's configs:
@@ -65,7 +75,19 @@ Phases (each one fatal on failure):
    rectified left camera) and its last velocity's error; the LK kernel
    against its plain version on the app's first pyramids; a checkpoint
    after frame 40 of the IMU run (VioState included) loaded back
-   bit-identical;
+   bit-identical. Then ``app_viz``: the IMU run again with ``--viz`` and
+   ``--save-vocab``, without ``--no-scene``: exit 0, 2 LK + 1 ORB launches
+   per frame, the checker's ATE within 0.5 mm of the IMU run's, a spatial
+   overlay PNG per keyframe and a temporal one per keyframe after the
+   first, all named in ``diagnostics.html``, the last spatial PNG decoded
+   (zlib) to 480 x 1504 x 3 with > 50 green marker pixels and equal to
+   ``draw_spatial_overlay`` redrawn from its keyframe's snapshot and
+   images, the ``viz: timing plots written`` or ``skipped`` line (skipped
+   without matplotlib, as the scene PNG is), ``scene.ply`` and
+   ``scene.html``; the host ms each keyframe spends in
+   ``save_keyframe_overlays``; the saved vocabulary reloaded on the card
+   identical, and a 20-frame run with ``backend.vocab_file`` set to it
+   (``app_vocab``, 2 LK + 1 ORB launches per frame);
 10. fulldress: ``e2e_fulldress.py``'s default dataset (1024x1024, radtan
    ``[-0.12, 0.035, 0.0006, -0.0004]``, 'arc' at speed 0.5, seed 11, IMU,
    rendered on the card), FULLDRESS_FRAMES frames through ``app.main`` with
@@ -161,9 +183,10 @@ Phases (each one fatal on failure):
    of the wall 6 m ahead confuses a strafe with a yaw); the raw dx and the
    dry run's verdict on it printed; the wall times of 1 and 2 workers
    (reported);
-14. a ``kernels`` JSON line (``launches`` is the system phase's count,
-   ``launches_by_path`` every path's), the nvidia-smi line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+14. the seconds of all phases, a ``kernels`` JSON line (``launches`` is the
+   system phase's count, ``launches_by_path`` every path's), the
+   nvidia-smi line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 Each kernel is timed two ways, each as the median and min-max of
 ``REPEATS`` repeats per turn: ``ms`` is the time per wrapper call (CUDA
@@ -208,6 +231,7 @@ N_FRAMES = 40        # slice phase: frames of the rendered sequence it runs
 N_WARMUP = 8
 SYSTEM_FRAMES = 80   # system phase (bench.py:run_full_system_fps)
 SYSTEM_WARMUP = 10
+CG_WINDOW = 24       # system_cg: a window above 16 keyframes, where "auto" picks CG
 APP_FRAMES = 80      # app phase: the exported EuRoC-layout sequence
 APP_CKPT_FRAME = 40  # app phase: the checkpoint round trip saves after this frame
 FULLDRESS_FRAMES = 60
@@ -842,6 +866,135 @@ def phase_system(seq, dev):
     return launches, dense
 
 
+def timed_system_run(s, seq) -> dict:
+    """The system phase's frames through the system ``s``: SYSTEM_WARMUP
+    frames untimed, then the launch counters at 0 and the rest with
+    ``flush_pipeline`` timed up to a synchronise, the implicit synchronises
+    recorded. Returns the launches, seconds, frame poses ``R``, ``t``,
+    keyframe flags, pose_ok share after frame 0, ATE, BA runs ([rmse
+    before, after, dropped observations]), the timed keyframes'
+    ``backend_ms`` and ``ba_dispatch`` host ms, and the records."""
+    import torch
+
+    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
+    from zenslam_tpu_torch.pipeline.system import flush_pipeline, process_frame
+
+    tels, infos = [], []
+
+    def keep(tel, info):
+        if tel is not None:
+            tels.append(tel)
+            infos.append(info)
+
+    for t in range(SYSTEM_WARMUP):
+        keep(*process_frame(s, seq.left[t], seq.right[t]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed_infos = len(infos)
+    reset_launches()
+    t0 = time.perf_counter()
+    with implicit_syncs() as records:
+        for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
+            keep(*process_frame(s, seq.left[t], seq.right[t]))
+        for tel, info in flush_pipeline(s):
+            keep(tel, info)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timed = infos[n_timed_infos:]
+    R = np.stack([t.R_cw for t in tels])
+    tt = np.stack([t.t_cw for t in tels])
+    return {"launches": read_launches(), "dt": dt, "R": R, "t": tt,
+            "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
+            "pose_ok": float(np.array([float(t.pose_ok) for t in tels])[1:].mean()),
+            "ate": ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw)),
+            "runs": [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None],
+            "backend_ms": [i["backend_ms"] for i in timed if i["backend_ms"] > 0],
+            "ba_dispatch": [i["phases"]["ba_dispatch"] for i in timed
+                            if "ba_dispatch" in i.get("phases", {})],
+            "records": records}
+
+
+def window_syncs(records, path_part: str) -> Counter:
+    """The implicit synchronises among ``records`` in files whose path holds
+    ``path_part``, or on the lines of ``system._windowed_ba``, by line."""
+    from zenslam_tpu_torch.pipeline import system
+
+    src, first = inspect.getsourcelines(system._windowed_ba)
+    here = Path(system.__file__).resolve()
+    return Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in records if "synchroniz" in str(w.message)
+        and (path_part in w.filename
+             or (Path(w.filename).resolve() == here and first <= w.lineno < first + len(src))))
+
+
+def phase_system_cg(seq, dev, dense: dict) -> dict:
+    """``[system_cg]``: the system phase's run with ``ba_window=CG_WINDOW``
+    and ``ba_solver="auto"``, which resolves to the CG solver above 16
+    keyframes; checked against the dense run and timed per window against
+    the dense solver on the same inputs. Returns the launches."""
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system
+
+    t0 = time.perf_counter()
+    bcfg = BackendConfig(telemetry_lag=3, ba_window=CG_WINDOW)
+    require(bcfg.ba_solver == "auto", f"system_cg: ba_solver {bcfg.ba_solver!r}")
+    s = create_system(SlamConfig(), bcfg, seq.rig, (SIZE, SIZE))
+    cg, dense_calls, windows = [], [], []
+    with recorded_calls(system, "bundle_adjust_cg", cg), \
+            recorded_calls(system, "bundle_adjust", dense_calls), \
+            recorded_calls(system, "_windowed_ba", windows):
+        run = timed_system_run(s, seq)
+    launches, dt, pose_ok, ate, runs, backend, dispatch, records = (
+        run[k] for k in ("launches", "dt", "pose_ok", "ate", "runs", "backend_ms", "ba_dispatch",
+                         "records"))
+    n = SYSTEM_FRAMES - SYSTEM_WARMUP
+    solvers = Counter(kw["solver"] for _, kw in windows)
+    in_ba = window_syncs(records, f"{os.sep}backend{os.sep}ba.py")
+    print(f"[system_cg] ba_window {CG_WINDOW}, ba_solver 'auto': windows by solver "
+          f"{dict(solvers)}, bundle_adjust_cg calls {len(cg)}, bundle_adjust calls "
+          f"{len(dense_calls)}; {n} frames {dt / n * 1e3:.2f} ms/frame; keyframes "
+          f"{s.n_keyframes} (dense {dense['n_keyframes']}), BA runs {s.n_ba_runs}; pose_ok "
+          f"{pose_ok:.3f}, ATE {ate:.5f} m; launches {launches}")
+    print(f"[system_cg] backend_ms median {float(np.median(backend)):.2f} (dense "
+          f"{float(np.median(dense['backend_ms'])):.2f}), ba_dispatch median "
+          f"{float(np.median(dispatch)):.3f} ms (dense "
+          f"{float(np.median(dense['ba_dispatch'])):.3f}); implicit synchronises in the run "
+          f"{len(sync_sites(records))} lines, in backend/ba.py and system.py:_windowed_ba: "
+          f"{dict(in_ba) or 'none'}")
+    print(f"[system_cg] BA rmse before/after/dropped: "
+          + "; ".join(f"{a:.4f}/{b:.4f}/{int(c)}" for a, b, c in runs))
+    a, kw = windows[-1]
+    cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **dict(kw, solver=k))
+                             for k in ("dense", "cg")}, pairs=5)
+    print(f"[system_cg] one windowed BA (the last keyframe's inputs, {int(s.kf_db.valid.sum())} "
+          f"keyframes in a {CG_WINDOW}-slot window, {kw['iterations']} LM steps) on "
+          f"{card_line()}: " + "; ".join(
+              f"{k} {c[0]} device kernels and copies, device busy {c[1]:.3f} ms, host "
+              f"{c[2]:.2f} ms" for k, c in cost.items())
+          + " (torch.profiler; host: medians of 5 alternating rounds)")
+    for k, ops in by_op.items():
+        print(f"[system_cg] {k}: device ms by operator (top 5): "
+              + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
+    print(f"[system_cg] phase {time.perf_counter() - t0:.1f} s")
+    require(solvers == Counter(cg=s.n_ba_runs) and len(cg) == s.n_ba_runs and not dense_calls,
+            f"system_cg: windows by solver {dict(solvers)}, {len(cg)} CG calls, "
+            f"{len(dense_calls)} dense calls for {s.n_ba_runs} BA runs")
+    require(launches == {"lk_fb": 2 * n, "orb": n},
+            f"system_cg: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
+    require(s.n_keyframes == dense["n_keyframes"],
+            f"system_cg: {s.n_keyframes} keyframes, the dense run {dense['n_keyframes']}")
+    require(s.n_ba_runs == s.n_keyframes - 1 == len(runs),
+            f"system_cg: {s.n_ba_runs} BA runs for {s.n_keyframes} keyframes")
+    require(all(np.isfinite(r).all() and r[1] <= 1.05 * r[0] for r in runs),
+            "system_cg: a BA run raised its rmse by > 5%")
+    require(ate < 0.05 and pose_ok >= 0.9, f"system_cg: ATE {ate:.4f} m, pose_ok {pose_ok:.3f}")
+    require(not in_ba, f"system_cg: implicit synchronises in backend/ba.py or _windowed_ba "
+                       f"{dict(in_ba)}")
+    return launches
+
+
 @contextlib.contextmanager
 def worst_residuals(system_module, windows: list):
     """Inside the block, append to ``windows``, for every windowed BA, its
@@ -1041,10 +1194,10 @@ def vio_errors(vio, seq, R_rect) -> tuple:
     return g_err, v_err
 
 
-def run_app(tag: str, opts_path, out, dev, extra=()):
-    """``app.main`` on an options file, its output printed under ``[tag]``;
-    returns (launches, the checker's result, keyframes, BA runs, printed
-    text)."""
+def run_app(tag: str, opts_path, out, dev, extra=(), no_scene: bool = True):
+    """``app.main`` on an options file (``--no-scene`` unless ``no_scene``
+    is False), its output printed under ``[tag]``; returns (launches, the
+    checker's result, keyframes, BA runs, printed text)."""
     import io
 
     import torch
@@ -1055,8 +1208,8 @@ def run_app(tag: str, opts_path, out, dev, extra=()):
     reset_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = app.main(["--options-file", str(opts_path), "--no-scene", "--device", str(dev),
-                       *extra])
+        rc = app.main(["--options-file", str(opts_path), "--device", str(dev),
+                       *(["--no-scene"] if no_scene else []), *extra])
     torch.cuda.synchronize()
     launches = read_launches()
     text = buf.getvalue()
@@ -1111,7 +1264,7 @@ def phase_app(dev):
     seq = make_distorted_sequence(np.random.default_rng(9), rig_raw, models,
                                   n_frames=APP_FRAMES, motion="strafe", dt=0.05, speed=0.5,
                                   pixel_noise=0.005, device_render=True, with_imu=True)
-    launches = {}
+    launches, checked = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         root, out = Path(tmp) / "mav0", Path(tmp) / "out"
         export_dataset(seq, str(root))
@@ -1129,6 +1282,7 @@ def phase_app(dev):
         for run, extra in (("app_no_imu", ("--no-imu",)), ("app", ())):
             with captured_systems() as created:
                 launches[run], r, n_kf, n_ba, text = run_app(run, opts_path, out, dev, extra)
+            checked[run] = r
             exp = r.get("exp", {})
             print(f"[{run}] checker: ATE {r.get('ate_mm', float('nan')):.1f} mm (bound "
                   f"{exp.get('ate_bound_mm')}), RPE {r.get('rpe_mm', float('nan')):.1f} mm "
@@ -1196,8 +1350,134 @@ def phase_app(dev):
               f"load_system ({ck.stat().st_size / 2 ** 20:.1f} MiB)")
         require(same and n_vio == 13, "app: checkpoint round trip on the card is not "
                                       "bit-identical or lacks the VioState")
-    print(f"[app] phase {time.perf_counter() - t0:.1f} s")
+        print(f"[app] phase {time.perf_counter() - t0:.1f} s")
+        launches.update(phase_app_viz(opts_path, out, Path(tmp), dev, checked["app"]))
     return launches, lk_err
+
+
+def read_png_rgb(path) -> np.ndarray:
+    """An 8-bit RGB PNG with filter 0 on every row (what
+    ``io/synthetic.py:write_png`` writes), decoded with the standard
+    library: (H, W, 3) uint8."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, ihdr, idat = 8, None, []
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, color = ihdr[:4]
+    require(depth == 8 and color == 2, f"{path}: depth {depth}, colour type {color} (not RGB8)")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    require(not raw[:, 0].any(), f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def phase_app_viz(opts_path, app_out: Path, tmp: Path, dev, app_r: dict) -> dict:
+    """``[app_viz]``: the app phase's folder and recipe through ``app.main``
+    with ``--viz`` and ``--save-vocab``, without ``--no-scene`` (the card's
+    machine may lack matplotlib: the scene PNG and the timing plots are then
+    skipped, the rest written); then the saved vocabulary reloaded on the
+    card and a 20-frame run with ``backend.vocab_file`` set to it
+    (``[app_vocab]``). ``app_r``: the checker's result of the ``[app]`` run
+    (as shipped, with IMU), whose output folder is ``app_out``. Returns
+    {run: launches}."""
+    import torch
+    import yaml
+
+    from zenslam_tpu_torch.analysis import overlays
+    from zenslam_tpu_torch.backend.bow import load_vocabulary
+
+    t0 = time.perf_counter()
+    out, vocab_path = tmp / "out_viz", tmp / "vocab.npz"
+    opts = yaml.safe_load(Path(opts_path).read_text())
+    opts["folder"]["output"] = str(out)
+    viz_opts = tmp / "euroc_mh_viz.yaml"
+    viz_opts.write_text(yaml.safe_dump(opts))
+    inner, calls = overlays.save_keyframe_overlays, []
+
+    def timed(viz_dir, frame_idx, left, right, snap, prev_snap=None):
+        t1 = time.perf_counter()
+        entry = inner(viz_dir, frame_idx, left, right, snap, prev_snap)
+        calls.append((frame_idx, left, right, snap, (time.perf_counter() - t1) * 1e3))
+        return entry
+
+    overlays.save_keyframe_overlays = timed
+    try:
+        with captured_systems() as created:
+            launches, r, n_kf, n_ba, text = run_app(
+                "app_viz", viz_opts, out, dev, ("--viz", "--save-vocab", str(vocab_path)),
+                no_scene=False)
+    finally:
+        overlays.save_keyframe_overlays = inner
+    require((out / "viz").is_dir() and calls, "app_viz: no overlay written")
+    viz = sorted(p.name for p in (out / "viz").iterdir())
+    spatial = [f for f in viz if f.startswith("spatial_")]
+    temporal = [f for f in viz if f.startswith("temporal_")]
+    report = (out / "diagnostics.html").read_text() if (out / "diagnostics.html").is_file() else ""
+    frame_idx, left, right, snap, _ = calls[-1]
+    png = read_png_rgb(out / "viz" / spatial[-1])
+    rgb = png / 255.0
+    green = int(((rgb[..., 1] > 0.6) & (rgb[..., 0] < 0.5) & (rgb[..., 2] < 0.5)).sum())
+    redrawn = overlays.draw_spatial_overlay(*overlays.to_host(
+        left, right, snap.xy, snap.uv_r, snap.stereo_ok, snap.valid))
+    viz_line = [ln for ln in text.splitlines() if ln.startswith("viz: timing plots")]
+    scene_line = [ln for ln in text.splitlines() if ln.startswith("scene")]
+    traj = [np.loadtxt(d / "trajectory.csv", delimiter=",") for d in (app_out, out)]
+    d_traj = float(np.abs(traj[0] - traj[1]).max()) if traj[0].shape == traj[1].shape \
+        else float("inf")
+    d_ate = abs(r.get("ate_mm", float("inf")) - app_r.get("ate_mm", float("nan")))
+    ms = [c[-1] for c in calls]
+    print(f"[app_viz] {len(spatial)} spatial and {len(temporal)} temporal PNGs for {n_kf} "
+          f"keyframes; last {spatial[-1]} {png.shape}, {green} green marker pixels, "
+          f"{'bit-identical to' if np.array_equal(png, redrawn) else 'DIFFERENT from'} "
+          f"draw_spatial_overlay on frame {frame_idx}'s snapshot and images; {viz_line}; "
+          f"{scene_line}")
+    print(f"[app_viz] checker ATE {r.get('ate_mm', float('nan')):.4f} mm against [app]'s "
+          f"{app_r.get('ate_mm', float('nan')):.4f} (|d| {d_ate:.4f}, bound 0.5), trajectory "
+          f"max |d| {d_traj:.3e} m; save_keyframe_overlays host ms per keyframe median "
+          f"{float(np.median(ms)):.2f} (min {min(ms):.2f}, max {max(ms):.2f}); steady "
+          f"{r.get('steady_ms', float('nan')):.2f} ms/frame against [app]'s "
+          f"{app_r.get('steady_ms', float('nan')):.2f}")
+    require(launches == {"lk_fb": 2 * APP_FRAMES, "orb": APP_FRAMES},
+            f"app_viz: launches {launches} != 2 LK + 1 ORB per frame over {APP_FRAMES} frames")
+    require(not r["failures"], f"app_viz: checker failed: {r['failures']}")
+    require(report and all(f in report for f in spatial), "app_viz: diagnostics.html missing or "
+                                                          "not naming every spatial PNG")
+    require(len(spatial) == len(calls) == n_kf and len(temporal) == n_kf - 1,
+            f"app_viz: {len(spatial)} spatial / {len(temporal)} temporal PNGs for {n_kf} "
+            "keyframes")
+    require(png.shape == (480, 2 * 752, 3) and green > 50,
+            f"app_viz: last overlay {png.shape} with {green} green pixels")
+    require(np.array_equal(png, redrawn), "app_viz: the PNG is not the redrawn overlay")
+    require(len(viz_line) == 1, "app_viz: no 'viz: timing plots written / skipped' line")
+    require((out / "scene.ply").is_file() and (out / "scene.html").is_file(),
+            "app_viz: scene.ply / scene.html missing")
+    require(d_ate <= 0.5, f"app_viz: ATE {d_ate:.4f} mm from the [app] run (bound 0.5)")
+
+    require("vocabulary saved:" in text, "app_viz: the run trained no vocabulary to save")
+    vocab = load_vocabulary(str(vocab_path), device=dev)
+    same = type(vocab) is type(created[-1].vocab) and all(
+        torch.equal(a, b) for a, b in zip(vocab, created[-1].vocab))
+    print(f"[app_viz] vocabulary {vocab_path.name} ({vocab_path.stat().st_size} bytes, "
+          f"{type(vocab).__name__} of {[tuple(x.shape) for x in vocab]}) reloaded on the card: "
+          f"{'identical to' if same else 'DIFFERENT from'} the run's")
+    require(same, "app_viz: the reloaded vocabulary differs from the saved one")
+    opts["folder"]["output"] = str(tmp / "out_vocab")
+    opts["backend"]["vocab_file"] = str(vocab_path)
+    vocab_opts = tmp / "euroc_mh_vocab.yaml"
+    vocab_opts.write_text(yaml.safe_dump(opts))
+    lv, rv, *_ = run_app("app_vocab", vocab_opts, tmp / "out_vocab", dev, ("--take", "20"))
+    require(lv == {"lk_fb": 40, "orb": 20}, f"app_vocab: launches {lv}")
+    print(f"[app_viz] phase {time.perf_counter() - t0:.1f} s")
+    return {"app_viz": launches, "app_vocab": lv}
 
 
 def systems_identical(s, s2) -> tuple:
@@ -2054,59 +2334,25 @@ def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
     last windowed BA's arguments and keyword arguments)."""
     import torch
 
-    from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
     from zenslam_tpu_torch.pipeline import SlamConfig
     from zenslam_tpu_torch.pipeline import system
-    from zenslam_tpu_torch.pipeline.system import (
-        BackendConfig, create_system, flush_pipeline, process_frame)
+    from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system
 
     s = create_system(SlamConfig(), BackendConfig(telemetry_lag=3, ba_solver="dist",
                                                   dist_devices=n_shards), seq.rig, (SIZE, SIZE))
-    tels, infos, drops, windows = [], [], [], []
-    src, first = inspect.getsourcelines(system._windowed_ba)
-    window_lines = range(first, first + len(src))
-
-    def keep(tel, info):
-        if tel is not None:
-            tels.append(tel)
-            infos.append(info)
-
+    drops, windows = [], []
     with routed_drops(system, drops, windows):
-        for t in range(SYSTEM_WARMUP):
-            keep(*process_frame(s, seq.left[t], seq.right[t]))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n_timed_infos = len(infos)
-        reset_launches()
-        t0 = time.perf_counter()
-        with implicit_syncs() as records:
-            for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
-                keep(*process_frame(s, seq.left[t], seq.right[t]))
-            for tel, info in flush_pipeline(s):
-                keep(tel, info)
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    launches = read_launches()
+        run = timed_system_run(s, seq)
+    launches, dt, R, tt, is_kf, pose_ok, ate, runs, backend, dispatch, records = (
+        run[k] for k in ("launches", "dt", "R", "t", "is_kf", "pose_ok", "ate", "runs",
+                         "backend_ms", "ba_dispatch", "records"))
     n = SYSTEM_FRAMES - SYSTEM_WARMUP
     n_drop = int(torch.stack(drops).sum()) if drops else 0
-    timed = infos[n_timed_infos:]
-    backend = [i["backend_ms"] for i in timed if i["backend_ms"] > 0]
-    dispatch = [i["phases"]["ba_dispatch"] for i in timed if "ba_dispatch" in i.get("phases", {})]
-    R = np.stack([t.R_cw for t in tels])
-    tt = np.stack([t.t_cw for t in tels])
-    is_kf = np.array([bool(t.is_keyframe) for t in tels])
-    pose_ok = float(np.array([float(t.pose_ok) for t in tels])[1:].mean())
-    ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
-    runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
     kf_t, kf_v = s.kf_db.t.cpu().numpy(), s.kf_db.valid.cpu().numpy()
     both = kf_v & dense["kf_valid"]
     d_frames = float(np.abs(tt - dense["t"]).max())
     d_kf = float(np.abs(kf_t[both] - dense["kf_t"][both]).max())
-    in_parallel = Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in records if "synchroniz" in str(w.message)
-        and (f"{os.sep}parallel{os.sep}" in w.filename
-             or (Path(w.filename).resolve() == Path(system.__file__).resolve()
-                 and w.lineno in window_lines)))
+    in_parallel = window_syncs(records, f"{os.sep}parallel{os.sep}")
     n_sync = len(sync_sites(records))
     mesh = system._live_ba_mesh(n_shards, s.device)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -2406,6 +2652,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         name, count, smi_line = phase_device()
         phase_build(compare)
@@ -2415,6 +2662,7 @@ def main() -> int:
         orb = phase_orb(seq, xy, valid, dev, compare)
         paths = {"slice": phase_slice(seq, dev)}
         paths["system"], dense = phase_system(seq, dev)
+        paths["system_cg"] = phase_system_cg(seq, dev, dense)
         paths["loop"] = phase_loop(dev)
         paths["kidnap"] = phase_kidnap(dev)
         app_paths, app_lk_err = phase_app(dev)
@@ -2436,6 +2684,7 @@ def main() -> int:
     for k in (lk, orb):
         k["launches"] = paths["system"][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+    print(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "ms_spread", "device_ms", "device_ms_spread", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

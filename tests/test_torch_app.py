@@ -24,9 +24,11 @@ The size: at 256x192 both packages track this sequence with frame-to-frame
 pose noise far above 2 mm (the same in both), so two free runs with
 different random draws cannot agree to 2 mm there; at 384x288 both do.
 
-Also the --viz guard (item 18), ``backend.ba_solver: dist`` against the
-dense solver on the folder's first frames, and no CUDA without --device; and the keylines recipe (options/euroc_mh_lines.yaml)
-builds a system that steps a frame with keylines.
+Also ``--viz`` on the port's run (the reference test's artifacts, the
+trajectory unchanged), ``backend.ba_solver: dist`` against the dense
+solver on the folder's first frames, and no CUDA without --device; and the
+keylines recipe (options/euroc_mh_lines.yaml) builds a system that steps a
+frame with keylines.
 """
 
 import contextlib
@@ -212,34 +214,50 @@ def test_checker_passes_and_fails(runs, tmp_path):
     assert check_run.main([str(bad), "--expected", str(exp_path)]) == 1
 
 
-@pytest.mark.parametrize("extra,folder,slam,backend,match", [
-    (["--viz"], {}, {}, {}, "item 18"),
-    (["--no-imu"], {}, {}, dict(ba_solver="dist"), "item 17"),
-])
-def test_unported_paths_raise(datasets, capsys, extra, folder, slam, backend, match):
-    """--viz (item 18) raises; ``backend.ba_solver: dist`` (item 17, ported)
-    runs the app on the fixture's folder over the first DIST_TAKE frames
-    (two keyframes, one BA run) within 2e-3 m of the dense run's
-    trajectory on the same frames."""
+@pytest.mark.parametrize("case", ["viz", "dist"])
+def test_viz_and_dist_runs(datasets, request, capsys, case):
+    """``--viz`` writes the reference test's artifacts (tests/test_app.py's
+    TestVizOverlays: diagnostics.html, >= 2 spatial and >= 1 temporal
+    overlay PNGs of the stereo pair's geometry with green match markers)
+    and leaves the trajectory of the fixture's run without it unchanged;
+    ``backend.ba_solver: dist`` runs the app on the fixture's folder over
+    the first DIST_TAKE frames (two keyframes, one BA run) within 2e-3 m of
+    the dense run's trajectory on the same frames."""
     from zenslam_tpu_torch.app import main
 
-    def run(out, backend):
-        path = Path(_options(datasets, datasets / "ref", out, **folder))
+    def run(out, backend, *extra):
+        path = Path(_options(datasets, datasets / "ref", out))
         opts = yaml.safe_load(path.read_text())
-        opts["slam"].update(slam)
         opts["backend"].update(backend)
         path.write_text(yaml.safe_dump(opts))
-        return main(["--options-file", str(path), "--device", "cpu", *extra])
+        return main(["--options-file", str(path), "--device", "cpu", "--no-imu", "--no-scene",
+                     *extra])
 
-    if match == "item 18":
-        with pytest.raises(NotImplementedError, match=match):
-            run("out_guard", backend)
+    if case == "viz":
+        _, port, _ = request.getfixturevalue("runs")
+        assert run("out_viz", {}, "--viz") == 0
+        out = datasets / "out_viz"
+        assert "viz: timing plots written" in capsys.readouterr().out
+        html = (out / "diagnostics.html").read_text()
+        assert "spatial_" in html and "keyframes" in html
+        viz = sorted(os.listdir(out / "viz"))
+        spatial = [f for f in viz if f.startswith("spatial_")]
+        temporal = [f for f in viz if f.startswith("temporal_")]
+        assert len(spatial) >= 2 and len(temporal) >= 1
+        assert all(f in html for f in spatial)
+        import matplotlib.image as mpimg
+        img = mpimg.imread(str(out / "viz" / spatial[-1]))
+        assert img.shape[:2] == (H, 2 * W)
+        rgb = img[..., :3]
+        green = (rgb[..., 1] > 0.6) & (rgb[..., 0] < 0.5) & (rgb[..., 2] < 0.5)
+        assert green.sum() > 50
+        assert mpimg.imread(str(out / "viz" / temporal[-1])).shape[:2] == (H, W)
+        assert (out / "trajectory.csv").read_text() == (port / "trajectory.csv").read_text()
         return
-    extra = [*extra, "--take", str(DIST_TAKE), "--no-scene"]
     trajectories = {}
-    for out, bk in (("out_dist", backend), ("out_dense", dict(ba_solver="dense"))):
+    for out, bk in (("out_dist", dict(ba_solver="dist")), ("out_dense", dict(ba_solver="dense"))):
         capsys.readouterr()
-        assert run(out, bk) == 0
+        assert run(out, bk, "--take", str(DIST_TAKE)) == 0
         printed = capsys.readouterr().out
         assert "BA runs: 1," in printed, printed
         trajectories[out] = np.loadtxt(datasets / out / "trajectory.csv", delimiter=",")

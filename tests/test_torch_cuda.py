@@ -23,7 +23,10 @@ ORB per frame. The other detector and descriptor families (Harris, DoG,
 SIFT, FREAK, the float matcher and the LSH codes) agree with the CPU with
 no synchronise on the card, and ``describe_refresh=4`` launches 2 LK and 1
 ORB per frame, the ORB kernel's ``needs`` rows bit-identical to a full pass;
-the app runs a family on the card by default. The sharded BA's device
+the app runs a family on the card by default, and ``--viz`` there reads
+each keyframe's overlay inputs in one synchronising copy. The CG solver
+agrees with the CPU (R and t 1e-4, xyz 1e-3 relative, the same accepted
+steps) with no synchronise. The sharded BA's device
 router gives the CPU's arrays, and its 8-shard solve over a one-rank NCCL
 group is within 1e-4 of the CPU's over gloo, with no synchronise.
 """
@@ -339,6 +342,28 @@ def test_dense_ba_and_pose_graph_on_card_match_cpu(dev):
     for k in ("R", "t"):
         assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4, k
     assert float(gpu["cost_after"]) < float(gpu["cost_before"]) / 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(iterations=3, cg_iters=40),
+                                dict(iterations=6, refine_landmarks=False)],
+                         ids=["full", "motion_only"])
+def test_cg_ba_on_card_matches_cpu_without_syncs(dev, kw):
+    """The matrix-free CG solver (``ba_solver="cg"``, and ``"auto"`` above
+    16 keyframes) on the card against the CPU on the dense test's window,
+    with no implicit synchronise after a warm-up call."""
+    p = _ba_problem(dev)
+    cpu = ba.bundle_adjust_cg(_to(p, "cpu"), **kw)
+    ba.bundle_adjust_cg(p, **kw)
+    gpu = _no_syncs(ba.bundle_adjust_cg, p, **kw)
+    for k in ("R", "t"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4, k
+    rel = (gpu["xyz"].cpu() - cpu["xyz"]).norm(dim=-1) / cpu["xyz"].norm(dim=-1).clamp(min=1.0)
+    assert rel.max().item() <= 1e-3
+    assert int(gpu["n_accepted"]) == int(cpu["n_accepted"]) > 0
+    assert float(gpu["rmse_after"]) < 0.5 * float(gpu["rmse_before"])
+    if kw.get("refine_landmarks") is False:
+        assert torch.equal(gpu["xyz"], p.xyz)
 
 
 def _recording_draw(seed):
@@ -712,6 +737,58 @@ def test_app_runs_a_family_on_card(dev, tmp_path):
     assert orb_cuda.orb_steered_brief.launches == orb0
     rows = (tmp_path / "out" / "trajectory.csv").read_text().strip().splitlines()
     assert len(rows) >= 6
+
+
+@pytest.mark.cuda
+def test_app_viz_on_card(dev, tmp_path, monkeypatch):
+    """``app --viz`` on the card by default on an 8-frame exported folder
+    with ``telemetry_lag=3``: 2 LK + 1 ORB launches a frame, the report and
+    the overlays written, and each ``save_keyframe_overlays`` call, given
+    the keyframe's device images and snapshot, makes exactly one
+    synchronising device-to-host copy."""
+    import warnings
+
+    import yaml
+
+    from zenslam_tpu_torch.analysis import overlays
+    from zenslam_tpu_torch.app import main
+    from zenslam_tpu_torch.io.synthetic import export_dataset
+
+    seq = make_sequence(np.random.default_rng(5), n_frames=8, width=256, height=192,
+                        motion="strafe", device="cpu")
+    export_dataset(seq, str(tmp_path / "data"))
+    out = tmp_path / "out"
+    opts = {"folder": dict(root=str(tmp_path / "data"), output=str(out)),
+            "slam": dict(max_keypoints=128, max_landmarks=1024, kf_min_frames=2),
+            "backend": dict(telemetry_lag=3)}
+    path = tmp_path / "options.yaml"
+    path.write_text(yaml.safe_dump(opts))
+    inner, syncs = overlays.save_keyframe_overlays, []
+
+    def counted(viz_dir, frame_idx, left, right, snap, prev_snap=None):
+        assert left.is_cuda and right.is_cuda and snap.xy.is_cuda
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                entry = inner(viz_dir, frame_idx, left, right, snap, prev_snap)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        return entry
+
+    monkeypatch.setattr(overlays, "save_keyframe_overlays", counted)
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    assert main(["--options-file", str(path), "--viz", "--no-scene"]) == 0
+    assert lk_cuda.lk_ragged.launches - lk0 == 16
+    assert orb_cuda.orb_steered_brief.launches - orb0 == 8
+    viz = sorted(p.name for p in (out / "viz").iterdir())
+    html = (out / "diagnostics.html").read_text()
+    assert sum(f.startswith("spatial_") for f in viz) >= 2
+    assert sum(f.startswith("temporal_") for f in viz) >= 1
+    assert all(f in html for f in viz)
+    assert syncs and all(n == 1 for n in syncs), syncs
 
 
 @pytest.fixture(scope="module")

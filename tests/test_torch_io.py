@@ -218,7 +218,7 @@ def test_png_writer_and_decoder(tmp_path, dtype):
     rng = np.random.default_rng(7)
     img = rng.integers(0, np.iinfo(dtype).max, (37, 53), dtype=dtype)
     jsyn.write_png_gray(str(tmp_path / "ref.png"), img)
-    psyn.write_png_gray(str(tmp_path / "port.png"), img)
+    psyn.write_png(str(tmp_path / "port.png"), img)
     assert (tmp_path / "ref.png").read_bytes() == (tmp_path / "port.png").read_bytes()
     got = pnative.decode_png_gray(str(tmp_path / "port.png"))
     assert got.dtype == dtype and np.array_equal(got, img)
@@ -231,10 +231,10 @@ def _dataset(root: Path, rng, n=6, imu=True):
     t0 = 1_000_000_000
     for i in range(n):
         ts = t0 + i * 50_000_000
-        psyn.write_png_gray(str(root / f"cam0/data/{ts}.png"),
-                            rng.integers(0, 255, (20, 30), dtype=np.uint8))
-        psyn.write_png_gray(str(root / f"cam1/data/{ts}.png"),
-                            rng.integers(0, 255, (20, 30), dtype=np.uint8))
+        psyn.write_png(str(root / f"cam0/data/{ts}.png"),
+                       rng.integers(0, 255, (20, 30), dtype=np.uint8))
+        psyn.write_png(str(root / f"cam1/data/{ts}.png"),
+                       rng.integers(0, 255, (20, 30), dtype=np.uint8))
     if imu:
         (root / "imu0").mkdir()
         ks = np.arange(n * 10 + 1)

@@ -8,7 +8,7 @@ interactive HTML view and a matplotlib snapshot — the port's own copy of
   with the cloud, estimated and groundtruth trajectories and keyframe
   frusta;
 - ``export_scene_png``: the same scene as a matplotlib 3D snapshot (needs
-  matplotlib).
+  matplotlib; ``export_scene`` skips it without).
 """
 
 from __future__ import annotations
@@ -206,13 +206,9 @@ def export_scene_html(path: str, scene: dict) -> None:
 
 def export_scene_png(path: str, scene: dict) -> None:
     """Matplotlib 3D snapshot: landmark cloud + trajectories + frusta.
-    Needs matplotlib; raises ImportError without it (the app's
-    ``--no-scene`` skips the whole scene export)."""
-    try:
-        import matplotlib
-    except ImportError as e:
-        raise ImportError("export_scene_png needs matplotlib, which is not installed; "
-                          "run the app with --no-scene to skip the scene export") from e
+    Needs matplotlib (ImportError without it)."""
+    import matplotlib
+
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -255,10 +251,17 @@ def export_scene_png(path: str, scene: dict) -> None:
 def export_scene(output_dir: str, system, est_positions=None,
                  gt_positions=None) -> dict:
     """Write scene.ply / scene.html / scene_3d.png into ``output_dir``.
-    Returns the collected scene dict (for tests)."""
+    Returns the collected scene dict (for tests). The PNG is garnish:
+    without matplotlib it is skipped, with one printed line, and the dict's
+    ``"png"`` is False."""
     scene = collect_scene(system, est_positions, gt_positions)
     export_ply(os.path.join(output_dir, "scene.ply"),
                scene["points"], scene["colors"])
     export_scene_html(os.path.join(output_dir, "scene.html"), scene)
-    export_scene_png(os.path.join(output_dir, "scene_3d.png"), scene)
+    try:
+        export_scene_png(os.path.join(output_dir, "scene_3d.png"), scene)
+        scene["png"] = True
+    except ImportError as e:
+        print(f"scene: scene_3d.png skipped ({e})")
+        scene["png"] = False
     return scene

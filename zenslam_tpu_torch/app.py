@@ -23,8 +23,12 @@ cpu`` is given; with no CUDA device and no ``--device`` it raises.
 ``backend.ba_solver: dist`` runs the windowed BA sharded (``parallel/``;
 ``backend.dist_devices`` shards, all on this process).
 
-Not ported yet, raising NotImplementedError naming its ROADMAP.md item:
-``--viz`` (item 18).
+``--viz`` keeps each frame's rectified device images until its (lagged)
+telemetry arrives; at a keyframe it writes the spatial and temporal overlay
+PNGs under ``<output>/viz`` from the system's keyframe snapshot (one packed
+device->host copy), then ``diagnostics.html`` with the timing plots (skipped
+without matplotlib, as the scene's PNG is). Without ``--viz`` nothing is
+kept and nothing more is read.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ def main(argv=None):
     ap.add_argument("--no-scene", action="store_true",
                     help="skip the 3D scene export (PLY/HTML/PNG)")
     ap.add_argument("--viz", action="store_true",
-                    help="per-keyframe match overlays and timing plots (not ported yet)")
+                    help="write per-keyframe 2D match-overlay PNGs (stereo + temporal) and a "
+                         "diagnostics.html report into the output folder")
     ap.add_argument("--save-vocab", default="",
                     help="write the run's trained BoW vocabulary to this .npz "
                          "(reload via backend.vocab_file)")
@@ -59,10 +64,6 @@ def main(argv=None):
     if args.version:
         print(f"zenslam_tpu_torch {zenslam_tpu_torch.__version__}")
         return 0
-    if args.viz:
-        raise NotImplementedError(
-            "--viz (keyframe match overlays, diagnostics report, timing plots) is not ported "
-            "to zenslam_tpu_torch yet, see ROADMAP.md Queue 1 item 18")
 
     import torch
 
@@ -143,7 +144,23 @@ def main(argv=None):
             gt_pos.append(gt.pose_at(ts)[1])
         return R, t
 
+    def draw(tel, info):
+        """--viz: the overlays of a keyframe whose frame is still held."""
+        nonlocal viz_prev_snap
+        if bool(tel.is_keyframe) and system.last_kf_snap is not None \
+                and info["frame"] in viz_imgs:
+            from zenslam_tpu_torch.analysis.overlays import save_keyframe_overlays
+
+            viz_entries.append(save_keyframe_overlays(
+                os.path.join(opts.folder.output, "viz"), info["frame"], *viz_imgs[info["frame"]],
+                system.last_kf_snap, viz_prev_snap))
+            viz_prev_snap = system.last_kf_snap
+
     R = t = None
+    # --viz: recent rectified device frames, so that a (telemetry-lagged)
+    # keyframe's overlay finds its images, and the previous keyframe's
+    # snapshot for the temporal join
+    viz_entries, viz_imgs, viz_prev_snap = [], {}, None
     try:
         for frame in _timed(reader.frames_prefetch()):
             frame, wait_ms = frame
@@ -169,15 +186,23 @@ def main(argv=None):
             dt_ms = (time.time() - t0) * 1000 + wait_ms
             times.append(dt_ms)
             n += 1
+            if args.viz:
+                viz_imgs[n - 1] = (il, ir)
             if tel is None:
                 continue
             R, t = emit(tel, info, dt_ms)
+            if args.viz:
+                draw(tel, info)
+                for k in [k for k in viz_imgs if k < info["frame"] - 1]:
+                    del viz_imgs[k]
             if n % 50 == 0:
                 print(f"frame {n}: {np.mean(times[-50:]):.1f} ms/frame, "
                       f"map {int(tel.map_size)}, inliers {int(tel.n_pose_inliers)}")
         if system is not None:
             for tel, info in flush_pipeline(system):
                 R, t = emit(tel, info, 0.0)
+                if args.viz:
+                    draw(tel, info)
     finally:
         telemetry.close()
         traj_f.close()
@@ -201,7 +226,25 @@ def main(argv=None):
         scene = export_scene(opts.folder.output, system, est_positions=est_pos,
                              gt_positions=gt_pos)
         print(f"scene export: {len(scene['points'])} landmarks -> "
-              f"{opts.folder.output}/scene.{{ply,html}} + scene_3d.png")
+              f"{opts.folder.output}/scene.{{ply,html}}"
+              + (" + scene_3d.png" if scene["png"] else ""))
+    if args.viz and viz_entries:
+        from zenslam_tpu_torch.analysis.overlays import export_viz_report
+
+        # timing plots from the run's own telemetry feed the report
+        timing_pngs = []
+        try:
+            from zenslam_tpu_torch.analysis.plot_timing_breakdown import main as plot_main
+
+            plot_main(["--csv", os.path.join(opts.folder.output, "frame_data.csv"),
+                       "--output", os.path.join(opts.folder.output, "plots")])
+            if os.path.exists(os.path.join(opts.folder.output, "plots", "timing_stacked.png")):
+                timing_pngs.append(os.path.join("plots", "timing_stacked.png"))
+            print("viz: timing plots written")
+        except Exception as e:  # plots are garnish; overlays are the product
+            print(f"viz: timing plots skipped ({e})")
+        report = export_viz_report(opts.folder.output, viz_entries, timing_pngs)
+        print(f"viz: {len(viz_entries)} keyframe overlay pairs -> {report}")
     if args.save_vocab and system is not None and system.vocab is not None:
         from zenslam_tpu_torch.backend.bow import save_vocabulary
 

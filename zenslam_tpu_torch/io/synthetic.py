@@ -6,7 +6,8 @@ the closed room of the loop workload, the host (numpy) renderer, a device
 IMU (``make_imu``; no lines, no photometric effects), and the dataset
 writers: sequences rendered through a distorted camchain
 (``make_distorted_sequence``, ``distort_sequence``), Kalibr YAML, PNG and
-EuRoC-layout folders with ``imu0/data.csv`` (``export_dataset``).
+EuRoC-layout folders with ``imu0/data.csv`` (``export_dataset``);
+``write_png`` also writes the RGB overlays of the app's ``--viz``.
 
 The numpy parts are the reference's code as it stands, so the same
 generator state renders the same images in both packages.
@@ -420,13 +421,15 @@ def write_kalibr_yaml(seq: SyntheticSequence, dist, path: str, model: str = "rad
         yaml.safe_dump(d, f)
 
 
-def write_png_gray(path: str, img: np.ndarray) -> None:
-    """Minimal grayscale PNG writer (zlib): 8 or 16 bit, filter 0."""
+def write_png(path: str, img: np.ndarray) -> None:
+    """Minimal PNG writer (zlib, filter 0): (H, W) grayscale at 8 or 16 bit,
+    or (H, W, 3) 8-bit RGB."""
     import struct
     import zlib
 
-    h, w = img.shape
-    depth = 16 if img.dtype == np.uint16 else 8
+    h, w = img.shape[:2]
+    rgb = img.ndim == 3
+    depth = 16 if img.dtype == np.uint16 and not rgb else 8
 
     def chunk(tag, body):
         out = struct.pack(">I", len(body)) + tag + body
@@ -435,7 +438,7 @@ def write_png_gray(path: str, img: np.ndarray) -> None:
     rows = img.astype(">u2") if depth == 16 else img.astype(np.uint8)
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           rows.view(np.uint8).reshape(h, -1)], axis=1).tobytes()
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, 2 if rgb else 0, 0, 0, 0)
     data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
     with open(path, "wb") as f:
@@ -463,8 +466,8 @@ def export_dataset(seq: SyntheticSequence, root: str) -> None:
     gt_rows = []
     for i in range(seq.left.shape[0]):
         ns = int(seq.timestamps[i] * 1e9) + t0_ns
-        write_png_gray(os.path.join(root, f"cam0/data/{ns}.png"), to_u8(seq.left[i]))
-        write_png_gray(os.path.join(root, f"cam1/data/{ns}.png"), to_u8(seq.right[i]))
+        write_png(os.path.join(root, f"cam0/data/{ns}.png"), to_u8(seq.left[i]))
+        write_png(os.path.join(root, f"cam1/data/{ns}.png"), to_u8(seq.right[i]))
         R = seq.R_lw[i]
         c = -R.T @ seq.t_lw[i]
         q = rotmat_to_quat(torch.from_numpy(np.ascontiguousarray(R.T))).numpy()
