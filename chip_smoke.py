@@ -15,6 +15,25 @@ Phases (each one fatal on failure):
    arguments (with and without init_pts); timed two ways (see below);
 4. orb: the ORB kernel against its plain version, full and with a ~10%
    ``needs`` mask; timed likewise;
+4a. fma: ``ops/image.py:fma``'s fused float32 op (what CUDA runs) against
+   its float64 emulation (what the CPU runs) on frame 0: every element of
+   the two Gaussian blurs and the Scharr gradients of its four pyramid
+   levels and of the ORB moments, and the keypoints, descriptors and poses
+   of FMA_FRAMES ``slam_step`` frames, must be bit-identical; the ORB
+   smoothing blur's device ms both ways;
+4b. api: the verify skill's library recipe through the port's public
+   imports (``zenslam_tpu_torch.geometry``, ``.estimation``, ``.ops``,
+   ``.pipeline``): a ``default_rig`` and 512 random points, each
+   triangulation (DLT and rectified on the stereo pair, DLT and midpoint
+   on the left and a second view 0.5 m away) within 1e-3 m of the truth,
+   degenerate rows (behind the cameras, zero disparity) finite and
+   rejected by ``triangulation_gates``, fundamental and essential RANSAC
+   on noise-free matches with 30% outliers and the pose that
+   ``recover_pose_from_essential`` gives within 1e-2, ``pyramidal_lk`` on
+   frame 0 -> 1 within 1e-3 px of its CPU run on the tracks ok in both
+   >= 96 px from the border, ``make_slam_step`` over API_FRAMES frames
+   bit-identical to ``slam_step`` with 2 LK + 1 ORB launches a frame; the
+   implicit synchronises of the new functions' second calls by line;
 5. slice: ``slam_step`` alone, default SlamConfig, on the first 40 frames of
    a 1024x1024 'arc' sequence rendered on the card (8 warm-up frames, then
    the measured frames with every launch counter set to 0 first): exactly 2
@@ -34,7 +53,11 @@ Phases (each one fatal on failure):
    LK + 1 ORB launches per timed frame, >= 8 keyframes (the vocabulary
    retrain at 8 runs), a BA run on every keyframe after the first, each
    with rmse_after <= 1.05 rmse_before and no dropped observations,
-   pose_ok >= 0.9 and ATE < 0.05 m. Two untimed repeats of the 80-frame
+   pose_ok >= 0.9 and ATE < 0.05 m, and no implicit synchronise in the
+   files of ROADMAP Queue 3 A's table (the step's 22 a frame before); float
+   scatter-adds and BA's planned sums repeated 20 times (the planned ones
+   bit-identical each time and to ``index_add_`` on the CPU). Two untimed
+   repeats of the 80-frame
    run (one as it is, one under ``torch.use_deterministic_algorithms``)
    print how far each window's rmse_before differs from the timed run's,
    and every window's robust cost, rmse and five worst residuals
@@ -48,7 +71,8 @@ Phases (each one fatal on failure):
    ``system._windowed_ba``; the medians of ``ba_dispatch`` and
    ``backend_ms`` beside the dense run's, and one window on the last
    keyframe's inputs through both solvers (``torch.profiler`` kernels and
-   busy ms, host ms);
+   busy ms, host ms, ``index_put_`` ms: under 10% of the CG window's busy
+   time);
 7. loop: the 64-frame 320x240 orbit of ``tests/test_loop_closure.py``
    (seed 21, pixel noise 0.01, radius 1.0, host render) through
    ``run_system`` twice, loop closure off and on with that test's configs:
@@ -250,6 +274,8 @@ FAMILIES = {         # families phase: run name -> SlamConfig fields
 FAMILY_COST_FRAME = 30    # families phase: the step whose cost is measured
 REFRESH_CHECK_FRAME = 20  # families phase: the step whose needs rows are checked
 SIZE = 1024
+FMA_FRAMES = 4       # fma phase: slam_step frames compared between the two fma forms
+API_FRAMES = 4       # api phase: make_slam_step frames against slam_step
 DIST_ITERS = 8       # dist phase: LM iterations of the solver-alone runs (the dry run's)
 DIST_BAR = 5e-2      # dist phase: frame / keyframe t against the dense run (dry run stage 3)
 STRAFE_WALL_Z = 6.0  # dist phase (d): the corridor's end wall (io/synthetic.py), m ahead
@@ -664,6 +690,242 @@ def phase_orb(seq, xy, valid, dev, compare: list):
                         library_ms=None)
 
 
+@contextlib.contextmanager
+def f64_fma():
+    """Inside the block ``ops/image.py:fma`` is its float64 emulation on
+    every device (the form the CPU runs), in the blurs and the ORB
+    moments."""
+    from zenslam_tpu_torch.ops import image, orb
+
+    saved = image.fma, orb.fma
+    image.fma = orb.fma = image._fma_f64
+    try:
+        yield
+    finally:
+        image.fma, orb.fma = saved
+
+
+def phase_fma(seq, dev) -> None:
+    """``[fma]``: ``ops/image.py:fma``'s fused float32 op (what CUDA runs)
+    against its float64 emulation on the 1024x1024 arc frame: the elements
+    that differ in every blur of the frame's pyramid levels (ORB's sigma 2
+    radius 4, sigma 1 radius 2, Scharr), in the ORB moments and in the
+    step's keypoints, descriptors and poses over FMA_FRAMES frames; the
+    ORB smoothing blur's device ms both ways."""
+    import torch
+
+    from zenslam_tpu_torch.ops.image import gaussian_blur, scharr_gradients
+    from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
+    from zenslam_tpu_torch.ops.orb import orb_moments
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+
+    t0 = time.perf_counter()
+    levels, _ = build_ragged_pyramid_pair(seq.left[0], seq.right[0], 3)
+
+    def blurs() -> dict:
+        out = {}
+        for lvl, img in enumerate(levels):
+            out[f"blur(2, 4) L{lvl}"] = gaussian_blur(img, 2.0, 4)
+            out[f"blur(1, 2) L{lvl}"] = gaussian_blur(img, 1.0, 2)
+            out[f"scharr L{lvl}"] = torch.stack(scharr_gradients(img))
+        out["orb moments"] = torch.stack(orb_moments(gaussian_blur(seq.left[0], 2.0, 4)))
+        return out
+
+    cfg = SlamConfig()
+
+    def steps() -> list:
+        state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+        rows = []
+        for t in range(FMA_FRAMES):
+            state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            f = state.features
+            rows.append({"xy": f.xy, "valid": f.valid, "desc": f.desc,
+                         "pose": torch.cat([tel.R_cw.reshape(-1), tel.t_cw])})
+        return rows
+
+    fused, fused_steps = blurs(), steps()
+    with f64_fma():
+        emulated, emulated_steps = blurs(), steps()
+    differ = {k: int((fused[k] != emulated[k]).sum()) for k in fused}
+    n_el = sum(v.numel() for v in fused.values())
+    step_differ = Counter()
+    for a, b in zip(fused_steps, emulated_steps):
+        for k in a:
+            step_differ[k] += int((a[k] != b[k]).sum())
+    img = seq.left[0]
+    ms = {"fused": summary(time_device(lambda: gaussian_blur(img, 2.0, 4)))}
+    with f64_fma():
+        ms["float64"] = summary(time_device(lambda: gaussian_blur(img, 2.0, 4)))
+    print(f"[fma] elements differing, fused vs float64, over {n_el} (blurs of 4 pyramid levels, "
+          f"Scharr, ORB moments): {sum(differ.values())}; by output: "
+          + ", ".join(f"{k} {v}" for k, v in differ.items()))
+    print(f"[fma] slam_step over {FMA_FRAMES} frames, fused vs float64: elements differing "
+          f"{dict(step_differ)}")
+    print(f"[fma] ORB smoothing blur (sigma 2, radius 4) on the 1024x1024 frame, device ms per "
+          f"call (CUDA graph of {DEVICE_CALLS}): fused {ms['fused']['median']:.5f} "
+          f"{ms['fused']['spread']}, float64 {ms['float64']['median']:.5f} "
+          f"{ms['float64']['spread']}")
+    print(f"[fma] phase {time.perf_counter() - t0:.1f} s")
+    require(sum(differ.values()) == 0 and sum(step_differ.values()) == 0,
+            f"fma: the fused op differs from the float64 form ({sum(differ.values())} blur "
+            f"elements, step {dict(step_differ)})")
+
+
+def phase_api(seq, xy, valid, dev) -> dict:
+    """``[api]``: the verify skill's library recipe through the port's
+    public imports on the card (see the module docstring). Returns the
+    launches of the ``make_slam_step`` run."""
+    import torch
+
+    from zenslam_tpu_torch.estimation import (
+        recover_pose_from_essential, solve_essential_ransac, solve_fundamental_ransac)
+    from zenslam_tpu_torch.estimation.ransac import gumbel
+    from zenslam_tpu_torch.geometry import (
+        project, se3_apply, so3_exp, triangulate_dlt, triangulate_midpoint,
+        triangulate_rectified, triangulation_gates)
+    from zenslam_tpu_torch.io.synthetic import default_rig
+    from zenslam_tpu_torch.ops import build_pyramid, pyramidal_lk
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step, slam_step
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(12)
+    rig = default_rig(SIZE, SIZE, device=dev)
+    K = rig.left.K
+    n = 512
+    X = torch.stack([torch.rand(n, generator=g, device=dev) * 4 - 2,
+                     torch.rand(n, generator=g, device=dev) * 4 - 2,
+                     torch.rand(n, generator=g, device=dev) * 3 + 1.0], -1)
+    R_lw = so3_exp(torch.tensor([0.02, -0.03, 0.01], dtype=f32, device=dev))
+    t_lw = torch.tensor([0.1, -0.05, 0.2], dtype=f32, device=dev)
+    R_rw, t_rw = rig.R_rl @ R_lw, rig.R_rl @ t_lw + rig.t_rl
+    x_l = se3_apply(R_lw, t_lw, X)
+    uv_l = project(rig.left, x_l)
+    uv_r = project(rig.right, se3_apply(R_rw, t_rw, X))
+    # a second view for the two-view solvers, 30% of its matches outliers
+    R_b = so3_exp(torch.tensor([0.0, 0.06, 0.01], dtype=f32, device=dev)) @ R_lw
+    t_b = t_lw + torch.tensor([0.5, 0.05, 0.1], dtype=f32, device=dev)
+    uv_b0 = project(rig.left, se3_apply(R_b, t_b, X))
+    out = torch.rand(n, generator=g, device=dev) < 0.3
+    uv_b = torch.where(out[:, None], uv_b0 + (torch.rand((n, 2), generator=g, device=dev) * 60
+                                              - 30), uv_b0)
+    everything = torch.ones(n, dtype=torch.bool, device=dev)
+    # degenerate rows for the gates: behind both cameras, zero disparity
+    Xd = torch.cat([X[:8] * torch.tensor([1.0, 1.0, -1.0], device=dev), X[8:16]])
+    uv_ld = torch.cat([uv_l[:8], uv_l[8:16]])
+    uv_rd = torch.cat([uv_r[:8], uv_l[8:16]])
+    fx, cx, cy, fy = K[0, 0], K[0, 2], K[1, 2], K[1, 1]
+    b = torch.linalg.vector_norm(rig.t_rl)
+    noise_f, noise_e = gumbel(g, (256, n), dev), gumbel(g, (256, n), dev)
+
+    def library():
+        X_dlt = triangulate_dlt(K, R_lw, t_lw, K, R_rw, t_rw, uv_l, uv_r)
+        X_mid = triangulate_midpoint(K, R_lw, t_lw, K, R_rw, t_rw, uv_l, uv_r)
+        x_rect = triangulate_rectified(fx, b, cx, cx, cy, fy, uv_l, uv_r)
+        X_dlt_b = triangulate_dlt(K, R_lw, t_lw, K, R_b, t_b, uv_l, uv_b0)
+        X_mid_b = triangulate_midpoint(K, R_lw, t_lw, K, R_b, t_b, uv_l, uv_b0)
+        X_deg = triangulate_dlt(K, R_lw, t_lw, K, R_rw, t_rw, uv_ld, uv_rd)
+        X_deg_mid = triangulate_midpoint(K, R_lw, t_lw, K, R_rw, t_rw, uv_ld, uv_rd)
+        x_deg_rect = triangulate_rectified(fx, b, cx, cx, cy, fy, uv_ld, uv_rd)
+        gates_ok = triangulation_gates(rig, R_lw, t_lw, X_dlt, uv_l, uv_r)
+        gates_deg = triangulation_gates(rig, R_lw, t_lw, torch.cat([Xd[:8], X_deg[8:]]),
+                                        uv_ld, uv_rd)
+        res_f = solve_fundamental_ransac(noise_f, uv_l, uv_b, everything)
+        res_e = solve_essential_ransac(noise_e, K, uv_l, uv_b, everything)
+        R_e, t_e, n_good = recover_pose_from_essential(res_e["E"], K, uv_l, uv_b,
+                                                        res_e["inliers"])
+        return (X_dlt, X_mid, x_rect, X_dlt_b, X_mid_b, X_deg, X_deg_mid, x_deg_rect, gates_ok,
+                gates_deg, res_f, res_e, R_e, t_e, n_good)
+
+    library()           # the first call's one-time work is not recorded
+    torch.cuda.synchronize()
+    with implicit_syncs() as records:
+        (X_dlt, X_mid, x_rect, X_dlt_b, X_mid_b, X_deg, X_deg_mid, x_deg_rect, gates_ok,
+         gates_deg, res_f, res_e, R_e, t_e, n_good) = library()
+    torch.cuda.synchronize()
+    # R_b, t_b relative to the left view, as recoverPose gives it (|t| = 1)
+    R_rel = R_b @ R_lw.T
+    t_rel = t_b - R_rel @ t_lw
+    t_rel = t_rel / torch.linalg.vector_norm(t_rel)
+    errs = {"dlt": float((X_dlt - X).abs().max()),
+            "rectified": float((x_rect - x_l).abs().max()),
+            "dlt (left, second view)": float((X_dlt_b - X).abs().max()),
+            "midpoint (left, second view)": float((X_mid_b - X).abs().max())}
+    mid_stereo = float((X_mid - X).abs().max())
+    rot_err = float((R_e - R_rel).abs().max())
+    t_err = float((t_e - t_rel).abs().max())
+    inl_f, inl_e = res_f["inliers"], res_e["inliers"]
+    print(f"[api] triangulation of {n} points 1-4 m ahead, max |error| (m): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; midpoint on the 0.11 m stereo pair {mid_stereo:.2e} (its 1 - cos^2 of "
+          f"near-parallel rays cancels in float32, in the reference too)")
+    print(f"[api] degenerate rows (8 behind the cameras, 8 at zero disparity): outputs finite "
+          f"{bool(torch.isfinite(X_deg).all() and torch.isfinite(X_deg_mid).all() and torch.isfinite(x_deg_rect).all())}, "
+          f"gates pass {int(gates_deg.sum())} of 16; the good points pass "
+          f"{int(gates_ok.sum())} of {n}")
+    print(f"[api] fundamental RANSAC: {int(res_f['n_inliers'])} inliers, outliers among them "
+          f"{int((inl_f & out).sum())}, inliers missed {int((~inl_f & ~out).sum())}; essential "
+          f"RANSAC: {int(res_e['n_inliers'])} inliers ({int((inl_e & out).sum())} outliers), "
+          f"recover_pose {int(n_good)} in front: max |dR| {rot_err:.2e}, max |dt| {t_err:.2e}")
+
+    # pyramidal_lk on the rendered pair, card against the CPU
+    p0, p1 = build_pyramid(seq.left[0], 3), build_pyramid(seq.left[1], 3)
+    pyramidal_lk(p0, p1, xy, valid)
+    torch.cuda.synchronize()
+    with implicit_syncs() as lk_records:
+        tk, ok_k, err_k = pyramidal_lk(p0, p1, xy, valid)
+    torch.cuda.synchronize()
+    cpu = [tuple(p.cpu() for p in pyr) for pyr in (p0, p1)]
+    tc, ok_c, _ = pyramidal_lk(*cpu, xy.cpu(), valid.cpu())
+    border = ((xy[:, 0] >= 96) & (xy[:, 0] < SIZE - 96) & (xy[:, 1] >= 96)
+              & (xy[:, 1] < SIZE - 96)).cpu()
+    both = ok_k.cpu() & ok_c & border
+    lk_err = float((tk.cpu() - tc).abs()[both].max())
+    print(f"[api] pyramidal_lk frame 0 -> 1, {int(valid.sum())} points: ok on the card "
+          f"{int(ok_k.sum())}, on the CPU {int(ok_c.sum())}, flags agree "
+          f"{float((ok_k.cpu() == ok_c)[valid.cpu()].float().mean()):.4f}; max |dxy| card vs "
+          f"CPU {lk_err:.2e} px on {int(both.sum())} tracks ok in both, >= 96 px from the border")
+
+    # make_slam_step against slam_step, 4 frames from the same state
+    cfg = SlamConfig()
+    step = make_slam_step(cfg, seq.rig)
+    sa = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+    sb = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+    tels = []
+    for t in range(API_FRAMES):
+        sb, tb = slam_step(cfg, seq.rig, sb, seq.left[t], seq.right[t])
+        tels.append(tb)
+    reset_launches()
+    same = True
+    for t in range(API_FRAMES):
+        sa, ta = step(sa, seq.left[t], seq.right[t])
+        same &= all(torch.equal(x, y) for x, y in zip(ta, tels[t]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same &= all(torch.equal(x, y) for x, y in zip(sa.features, sb.features))
+    print(f"[api] make_slam_step over {API_FRAMES} frames: telemetry and features "
+          f"bit-identical to slam_step {same}, launches {launches}")
+    sites = sync_sites(records) + sync_sites(lk_records)
+    print(f"[api] implicit synchronises of the new functions (triangulation, gates, RANSAC, "
+          f"recover_pose, pyramidal_lk; their second calls): {sum(sites.values())}; by line: "
+          + (", ".join(f"{k} x{v}" for k, v in sites.most_common()) or "none"))
+    print(f"[api] phase {time.perf_counter() - t0:.1f} s")
+    require(all(v < 1e-3 for v in errs.values()), f"api: triangulation errors {errs}")
+    require(bool(torch.isfinite(X_deg).all() and torch.isfinite(X_deg_mid).all()
+                 and torch.isfinite(x_deg_rect).all()), "api: non-finite degenerate outputs")
+    require(not bool(gates_deg.any()) and float(gates_ok.float().mean()) > 0.9,
+            f"api: gates pass {int(gates_deg.sum())} degenerate rows, "
+            f"{int(gates_ok.sum())} of {n} good ones")
+    require(bool(res_f["ok"]) and int((~inl_f & ~out).sum()) <= 0.02 * n,
+            f"api: fundamental RANSAC missed {int((~inl_f & ~out).sum())} inliers")
+    require(rot_err < 1e-2 and t_err < 1e-2, f"api: recovered pose |dR| {rot_err}, |dt| {t_err}")
+    require(lk_err <= 1e-3 and int(both.sum()) >= 0.8 * int((valid.cpu() & border).sum()),
+            f"api: pyramidal_lk card vs CPU {lk_err} px on {int(both.sum())} tracks")
+    require(same and launches == {"lk_fb": 2 * API_FRAMES, "orb": API_FRAMES},
+            f"api: make_slam_step identical {same}, launches {launches}")
+    return launches
+
+
 def phase_slice(seq, dev):
     import torch
 
@@ -736,10 +998,40 @@ def implicit_syncs():
             torch.cuda.set_sync_debug_mode("default")
 
 
+def is_sync(w) -> bool:
+    """Whether the warning record ``w`` reports a synchronise: not the
+    one-time notice that ``set_sync_debug_mode`` is a prototype, which also
+    says "synchronizing"."""
+    text = str(w.message)
+    return "synchroniz" in text and "prototype" not in text
+
+
+# the files of ROADMAP Queue 3 A's table: the front end's synchronising
+# lines, 22 a frame in [system] before they were removed
+QUEUE3A_FILES = ("cascade.py", "epipolar.py", "rigid.py", "polar.py", "camera.py", "step.py",
+                 "fast.py")
+
+
+def queue3a_syncs(tag: str, records, n_frames: int) -> Counter:
+    """Print, per frame and by line, the implicit synchronises among
+    ``records`` in the files of ROADMAP Queue 3 A's table, and return
+    them."""
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in records
+                    if is_sync(w) and Path(w.filename).name in QUEUE3A_FILES)
+    print(f"[{tag}] implicit synchronises per frame on the files of ROADMAP Queue 3 A's table: "
+          + (", ".join(f"{k} {v / n_frames:.3f}" for k, v in sites.most_common()) or "none"))
+    return sites
+
+
 def sync_sites(records) -> Counter:
-    """The synchronise records among ``records``, counted by source line."""
-    return Counter(f"{Path(w.filename).name}:{w.lineno}" for w in records
-                   if "synchroniz" in str(w.message))
+    """The synchronise records among ``records``, counted by source line
+    (a package's ``__init__.py`` with its package's name)."""
+    def site(w) -> str:
+        path = Path(w.filename)
+        name = f"{path.parent.name}/{path.name}" if path.name == "__init__.py" else path.name
+        return f"{name}:{w.lineno}"
+
+    return Counter(site(w) for w in records if is_sync(w))
 
 
 @contextlib.contextmanager
@@ -848,6 +1140,7 @@ def phase_system(seq, dev):
     print(f"[system] implicit synchronises outside it (the step, telemetry): {nf} "
           f"({nf / n:.3f} per frame); by line: "
           + ", ".join(f"{k} x{v}" for k, v in front.most_common(16)))
+    left = queue3a_syncs("system", [r for i, r in enumerate(records) if i not in in_backend], n)
     repeat_system(seq, cfg, bcfg, runs)
     require(launches == {"lk_fb": 2 * n, "orb": n},
             f"system: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
@@ -859,6 +1152,7 @@ def phase_system(seq, dev):
             "system: a BA run raised its rmse by > 5% or dropped observations")
     require(ok_share >= 0.9, f"system: pose_ok on {ok_share:.3f} < 0.9 of frames")
     require(ate < 0.05, f"system: ATE {ate:.4f} m >= 0.05 m")
+    require(not left, f"system: implicit synchronises left on Queue 3 A's lines {dict(left)}")
     dense = {"R": R, "t": tt, "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
              "kf_t": s.kf_db.t.cpu().numpy(), "kf_valid": s.kf_db.valid.cpu().numpy(),
              "n_keyframes": s.n_keyframes, "n_ba_runs": s.n_ba_runs, "backend_ms": backend,
@@ -922,7 +1216,7 @@ def window_syncs(records, path_part: str) -> Counter:
     src, first = inspect.getsourcelines(system._windowed_ba)
     here = Path(system.__file__).resolve()
     return Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in records if "synchroniz" in str(w.message)
+        f"{Path(w.filename).name}:{w.lineno}" for w in records if is_sync(w)
         and (path_part in w.filename
              or (Path(w.filename).resolve() == here and first <= w.lineno < first + len(src))))
 
@@ -977,6 +1271,11 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     for k, ops in by_op.items():
         print(f"[system_cg] {k}: device ms by operator (top 5): "
               + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
+    put = {k: by_op[k].get("aten::index_put_", 0.0) for k in cost}
+    print(f"[system_cg] one window's index_put_ device ms: " + ", ".join(
+        f"{k} {put[k]:.3f} of {cost[k][1]:.3f} busy ({put[k] / cost[k][1]:.4f}), "
+        f"segment_reduce {by_op[k].get('aten::segment_reduce', 0.0):.3f}, "
+        f"mm {by_op[k].get('aten::mm', 0.0):.3f}" for k in cost))
     print(f"[system_cg] phase {time.perf_counter() - t0:.1f} s")
     require(solvers == Counter(cg=s.n_ba_runs) and len(cg) == s.n_ba_runs and not dense_calls,
             f"system_cg: windows by solver {dict(solvers)}, {len(cg)} CG calls, "
@@ -992,6 +1291,8 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     require(ate < 0.05 and pose_ok >= 0.9, f"system_cg: ATE {ate:.4f} m, pose_ok {pose_ok:.3f}")
     require(not in_ba, f"system_cg: implicit synchronises in backend/ba.py or _windowed_ba "
                        f"{dict(in_ba)}")
+    require(put["cg"] < 0.1 * cost["cg"][1],
+            f"system_cg: index_put_ {put['cg']:.3f} ms of a CG window's {cost['cg'][1]:.3f}")
     return launches
 
 
@@ -1053,22 +1354,41 @@ def run_windows(seq, cfg, bcfg, deterministic: bool = False):
 
 def scatter_determinism(dev) -> None:
     """Whether a float scatter-add gives the same bits on every run: 20
-    repeats of ``index_add_`` and of ``index_put_(accumulate=True)`` (what
-    ``backend.ba.seg_add_`` uses on CUDA) over 60000 random (6, 6) rows
-    into 16384 slots, as BA's block sums do."""
+    repeats of ``index_add_``, of ``index_put_(accumulate=True)`` (what
+    ``backend.ba.seg_add_`` uses on CUDA) and of BA's planned sums
+    (``backend.ba.seg_sum``, the plan built once as BA builds it per
+    window) over 60000 random (6, 6) rows into 16384 slots, as BA's block
+    sums do, and of the planned sums into 24 slots (a window's keyframes,
+    ~2500 rows each). The planned sums must repeat bit for bit and equal
+    ``index_add_`` on the CPU."""
     import torch
+
+    from zenslam_tpu_torch.backend.ba import seg_plan, seg_sum
 
     g = torch.Generator(device=dev).manual_seed(0)
     idx = torch.randint(0, 16384, (60000,), device=dev, generator=g)
+    kf = torch.randint(0, 24, (60000,), device=dev, generator=g)
+    keep = torch.rand(60000, device=dev, generator=g) < 0.9
     vals = torch.randn(60000, 6, 6, device=dev, generator=g)
-    for name, fn in (("index_add_", lambda z: z.index_add_(0, idx, vals)),
-                     ("index_put_ accumulate", lambda z: z.index_put_((idx,), vals,
-                                                                      accumulate=True))):
-        outs = [fn(torch.zeros(16384, 6, 6, device=dev)) for _ in range(20)]
+    planned = {"seg_sum (16384 slots)": (idx, seg_plan(16384, idx, keep)),
+               "seg_sum (24 slots)": (kf, seg_plan(24, kf, keep))}
+    for name, fn in (
+            ("index_add_", lambda: torch.zeros(16384, 6, 6, device=dev).index_add_(0, idx, vals)),
+            ("index_put_ accumulate", lambda: torch.zeros(16384, 6, 6, device=dev).index_put_(
+                (idx,), vals, accumulate=True)),
+            *((k, functools.partial(seg_sum, plan, vals)) for k, (_, plan) in planned.items())):
+        outs = [fn() for _ in range(20)]
         same = sum(torch.equal(outs[0], o) for o in outs[1:])
         diff = float((torch.stack(outs) - outs[0]).abs().max())
         print(f"[system] {name}: {same} of 19 repeats bit-identical to the first, max |diff| "
               f"{diff:.3e}")
+        if name in planned:
+            groups = planned[name][0]
+            cpu = torch.zeros(outs[0].shape).index_add_(0, groups[keep].cpu(), vals[keep].cpu())
+            print(f"[system] {name} against index_add_ on the CPU: max |diff| "
+                  f"{float((outs[0].cpu() - cpu).abs().max()):.3e}")
+            require(same == 19 and torch.equal(outs[0].cpu(), cpu),
+                    f"system: {name} not bit-identical over repeats or to index_add_ on the CPU")
 
 
 def repeat_system(seq, cfg, bcfg, timed_runs):
@@ -1649,6 +1969,7 @@ def phase_fulldress(dev):
         print(f"[fulldress] implicit synchronises in the IMU run: {n} ({n / len(rows):.3f} per "
               f"frame); by line: " + ", ".join(f"{k} x{v}" for k, v in sites.most_common(16)))
         print(f"[fulldress] of them in imu/ or estimation/fusion.py: {dict(in_vio)}")
+        queue3a_syncs("fulldress", records, len(rows))
         k = FULLDRESS_FRAMES // 2
         cost = vio_branch_cost(Path(tmp) / "fulldress.yaml", k, dev)
         (k_imu, busy_imu, ms_imu), (k_plain, busy_plain, ms_plain) = cost["imu"], cost["no_imu"]
@@ -2660,7 +2981,9 @@ def main() -> int:
         seq, xy, valid = render_inputs(dev)
         lk = phase_lk(seq, xy, valid, dev, compare)
         orb = phase_orb(seq, xy, valid, dev, compare)
-        paths = {"slice": phase_slice(seq, dev)}
+        phase_fma(seq, dev)
+        paths = {"api": phase_api(seq, xy, valid, dev)}
+        paths["slice"] = phase_slice(seq, dev)
         paths["system"], dense = phase_system(seq, dev)
         paths["system_cg"] = phase_system_cg(seq, dev, dense)
         paths["loop"] = phase_loop(dev)

@@ -28,7 +28,11 @@ each keyframe's overlay inputs in one synchronising copy. The CG solver
 agrees with the CPU (R and t 1e-4, xyz 1e-3 relative, the same accepted
 steps) with no synchronise. The sharded BA's device
 router gives the CPU's arrays, and its 8-shard solve over a one-rank NCCL
-group is within 1e-4 of the CPU's over gloo, with no synchronise.
+group is within 1e-4 of the CPU's over gloo, with no synchronise. A
+default-config ``slam_step`` makes no implicit synchronise; BA's planned
+block sums repeat bit for bit and equal ``index_add_`` on the CPU; the
+fused multiply-add of ``ops/image.py`` (what the blurs and ORB moments run
+on CUDA) is bit-identical to its float64 emulation.
 """
 
 import numpy as np
@@ -840,3 +844,74 @@ def test_dist_ba_on_card_matches_cpu_without_syncs(ba_meshes):
     assert float(gpu["cost_after"]) < 0.1 * float(gpu["cost_before"])
     dense = ba.bundle_adjust(p, iterations=4)
     assert (gpu["t"] - dense["t"]).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_slam_step_makes_no_implicit_synchronise(dev):
+    """A default-config ``slam_step`` on the card, after two warm-up frames,
+    makes no implicit synchronise (22 a frame until the front end's
+    constants, indexing and inverses were kept on the device and the pose
+    recovery's SVD was made by hand)."""
+    import warnings
+
+    seq = make_sequence(np.random.default_rng(11), n_frames=6, motion="arc",
+                        device_render=True, device=dev)
+    cfg = SlamConfig()
+    state = init_state(cfg, (384, 512), device=dev)
+    for t in range(2):
+        state, _ = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t in range(2, 6):
+                state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = sorted({f"{w.filename}:{w.lineno}" for w in caught       # not the prototype notice
+                    if "synchroniz" in str(w.message) and "prototype" not in str(w.message)})
+    assert not sites, sites
+    assert bool(tel.pose_ok)
+
+
+@pytest.mark.cuda
+def test_ba_planned_sums_repeat_on_card_and_match_cpu(dev):
+    """BA's block sums on the card (``backend.ba.seg_sum``, by keyframe and
+    by landmark): the same bits on every run, and the bits of
+    ``index_add_`` on the CPU (both add each group's rows in row order)."""
+    p = _ba_problem(dev)
+    K, M = p.R.shape[0], p.xyz.shape[0]
+    r, w, kf, lm, Jp, Jl = ba._obs_jacobians(p, p.R, p.t, p.xyz, 1.0)
+    plans = ba.ba_plans(p)
+    keep = p.obs_valid.cpu()
+    for plan, idx, n, v in ((plans.kf, kf, K, torch.einsum("oai,oaj->oij", Jp * w[:, None, None], Jp)),
+                            (plans.lm, lm, M, torch.einsum("oai,oa->oi", Jl * w[:, None, None], r))):
+        outs = [ba.seg_sum(plan, v) for _ in range(20)]
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+        ref = torch.zeros((n,) + v.shape[1:]).index_add_(0, idx.cpu()[keep], v.cpu()[keep])
+        assert torch.equal(outs[0].cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_fused_fma_bit_identical_to_float64_on_card(dev):
+    """``ops/image.py:fma`` on CUDA (one fused float32 op) against its
+    float64 emulation: no element differs over 4M random multiply-adds of
+    each form (a scalar weight, two tensors), the blurs of a 1024x1024
+    texture and the ORB moments."""
+    from zenslam_tpu_torch.ops import image, orb
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    a, b, c = (torch.randn(1 << 22, generator=g, device=dev) for _ in range(3))
+    for w in (float(torch.tensor(0.1234567)), float(torch.tensor(1 / 3.0))):   # float32 weights
+        assert int((image._fma_fused(w, b, c) != image._fma_f64(w, b, c)).sum()) == 0
+    assert int((image._fma_fused(a, b, c) != image._fma_f64(a, b, c)).sum()) == 0
+    tex = torch.from_numpy(smooth_texture(np.random.default_rng(9), 1024, 1024)).to(dev)
+    fused = [gaussian_blur(tex, 2.0, 4), gaussian_blur(tex, 1.0, 2), *orb.orb_moments(tex)]
+    saved = image.fma, orb.fma
+    image.fma = orb.fma = image._fma_f64
+    try:
+        emulated = [gaussian_blur(tex, 2.0, 4), gaussian_blur(tex, 1.0, 2), *orb.orb_moments(tex)]
+    finally:
+        image.fma, orb.fma = saved
+    assert [int((x != y).sum()) for x, y in zip(fused, emulated)] == [0, 0, 0, 0]

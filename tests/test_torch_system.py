@@ -250,6 +250,43 @@ def test_windowed_dist_ba_teacher_forced(seq, reference):
             <= 1e-3 * np.maximum(np.linalg.norm(jo[2], axis=-1), 1.0)).all()
 
 
+def test_ba_window_sums_match_index_add(seq, reference, monkeypatch):
+    """BA's block sums on a window of the system's own inputs (the captured
+    system's windowed BA problem): the planned segment sums, which both
+    devices run, are bit-identical to ``index_add_`` of the valid rows, by
+    keyframe, by landmark and by (landmark, keyframe)."""
+    from zenslam_tpu_torch.backend import ba
+
+    problems = []
+    solve = psystem.bundle_adjust
+
+    def spy(p, **kw):
+        problems.append(p)
+        return solve(p, **kw)
+
+    monkeypatch.setattr(psystem, "bundle_adjust", spy)
+    H, W = seq.left[0].shape
+    ps = convert.system_from_numpy(reference[2]["before"], "cpu", image_shape=(H, W))
+    lm, st = ps.state.lmap, ps.state
+    psystem._windowed_ba(ps.kf_db, lm.xyz, lm.valid, lm.generation, st.R_cw, st.t_cw, ps.rig,
+                         W=ps.bcfg.ba_window, solver="dense", iterations=1)
+    p = problems[0]
+    K, M = p.R.shape[0], p.xyz.shape[0]
+    r, w, kf, lm_i, Jp, Jl = ba._obs_jacobians(p, p.R, p.t, p.xyz, 1.0)
+    Jp_w, Jl_w = Jp * w[:, None, None], Jl * w[:, None, None]
+    keep = p.obs_valid
+    assert 200 < int(keep.sum()) and K >= 3
+    plans = ba.ba_plans(p)
+    sums = ((plans.kf, K, kf, torch.einsum("oai,oaj->oij", Jp_w, Jp)),
+            (plans.kf, K, kf, -torch.einsum("oai,oa->oi", Jp_w, r)),
+            (plans.lm, M, lm_i, torch.einsum("oai,oaj->oij", Jl_w, Jl)),
+            (plans.lm, M, lm_i, -torch.einsum("oai,oa->oi", Jl_w, r)),
+            (plans.lm_kf, M * K, lm_i * K + kf, torch.einsum("oai,oaj->oij", Jp_w, Jl)))
+    for plan, n, idx, v in sums:
+        ref = torch.zeros((n,) + v.shape[1:]).index_add_(0, idx[keep], v[keep])
+        assert torch.equal(ba.seg_sum(plan, v), ref)
+
+
 def test_free_running_system(seq, reference):
     js, jtel, _ = reference
     prig = convert.rig_from_numpy(_copy(seq.rig), "cpu")

@@ -88,24 +88,68 @@ def seg_add_(out, idx, vals):
     indices and sums each group in turn, where ``index_add_`` races float
     atomics whose order changes the last bits of each sum from run to run
     (and, through BA's write-back, later keyframe decisions). On the CPU
-    ``index_add_`` already adds in row order."""
+    ``index_add_`` already adds in row order. For the few, short groups of
+    the pose graph; BA's sums go through ``SegPlan``."""
     if out.device.type == "cuda":
         return out.index_put_((idx.long(),), vals, accumulate=True)
     return out.index_add_(0, idx, vals)
 
 
-def _seg_sum(n: int, idx, vals, keep=None):
-    """(n, ...) sums of ``vals`` rows grouped by ``idx`` (the reference's
-    ``zeros.at[idx].add``). Rows where ``keep`` is False add nothing and go
-    to sink rows past n, one each, cut off after: on CUDA ``seg_add_`` sums
-    the rows sharing an index one after another, so thousands of padding
-    rows on one index (the sharded router's) would serialise."""
-    n_out = n
+class SegPlan(NamedTuple):
+    """How to sum rows grouped by an index that holds for a whole BA window
+    (the observations' keyframe or landmark), in an order fixed by the plan
+    and not by the run: the kept rows sorted stably by group, each group
+    summed in row order by ``torch.segment_reduce``, as ``index_add_`` adds
+    on the CPU, bit for bit on either device. The deterministic
+    ``index_put_(accumulate=True)`` gives the same sums on CUDA, but sorts
+    the indices on every call and adds a group's rows through global
+    memory one after another; a plan sorts once per window. Rows dropped
+    by ``keep`` (the sharded router's padding) sort last and are read by no
+    group, so they change no bit and lengthen no group."""
+
+    order: torch.Tensor      # (O,) rows sorted by group, dropped rows last
+    offsets: torch.Tensor    # (n + 1,) first sorted row of each group
+
+
+def seg_plan(n: int, idx, keep=None) -> SegPlan:
+    """The plan for (n, ...) sums of rows grouped by ``idx`` (O,) in [0, n);
+    rows where ``keep`` is False add nothing. One stable sort, no host
+    read."""
+    key = idx.long()
     if keep is not None:
-        n_out = n + idx.shape[0]
-        idx = torch.where(keep, idx, torch.arange(n, n_out, dtype=idx.dtype, device=idx.device))
-    out = torch.zeros((n_out,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return seg_add_(out, idx, vals)[:n]
+        key = torch.where(keep, key, n)
+    key_sorted, order = torch.sort(key, stable=True)
+    groups = torch.arange(n + 1, dtype=key.dtype, device=key.device)
+    return SegPlan(order=order, offsets=torch.searchsorted(key_sorted, groups))
+
+
+def seg_sum(plan: SegPlan, vals, live=None):
+    """(n, ...) sums of ``vals`` (O, ...) rows by ``plan`` (the reference's
+    ``zeros.at[idx].add``); rows where ``live`` is False add zero."""
+    if live is not None:
+        vals = torch.where(live.reshape(live.shape + (1,) * (vals.dim() - 1)), vals, 0.0)
+    return torch.segment_reduce(vals.index_select(0, plan.order), "sum", offsets=plan.offsets,
+                                unsafe=True)
+
+
+class BAPlans(NamedTuple):
+    """A window's sum plans: by keyframe, by landmark and, for the dense
+    solver's (M, K) blocks, by (landmark, keyframe)."""
+
+    kf: SegPlan
+    lm: SegPlan
+    lm_kf: SegPlan | None
+
+
+def ba_plans(p: BAProblem, pairs: bool = True) -> BAPlans:
+    """The sum plans of ``p``'s observations, built once per window: the
+    observation rows' keyframe and landmark stay fixed over its LM steps
+    and CG iterations. Invalid observations add nothing."""
+    K, M = p.R.shape[0], p.xyz.shape[0]
+    kf = p.obs_kf.clamp(0, K - 1).long()
+    lm = p.obs_lm.clamp(0, M - 1).long()
+    return BAPlans(kf=seg_plan(K, kf, p.obs_valid), lm=seg_plan(M, lm, p.obs_valid),
+                   lm_kf=seg_plan(M * K, lm * K + kf, p.obs_valid) if pairs else None)
 
 
 def _residuals_and_weights(p: BAProblem, R, t, xyz, huber_delta: float):
@@ -174,20 +218,22 @@ def _obs_jacobians(p: BAProblem, R, t, xyz, huber_delta: float):
     return r, w, kf, lm, Jp, Jl
 
 
-def _build_blocks(p: BAProblem, R, t, xyz, huber_delta: float):
+def _build_blocks(p: BAProblem, R, t, xyz, huber_delta: float, plans: BAPlans | None = None):
     """Normal-equation blocks: U (K,6,6), g_p (K,6), V (M,3,3), g_l (M,3),
-    A (M,K,6,3) with A[m,k] the sum of J_pᵀ W J_l over observations (k, m)."""
+    A (M,K,6,3) with A[m,k] the sum of J_pᵀ W J_l over observations (k, m).
+    ``plans``: ``ba_plans(p)``, built here when not given."""
     K, M = R.shape[0], xyz.shape[0]
+    plans = ba_plans(p) if plans is None else plans
     r, w, kf, lm, Jp, Jl = _obs_jacobians(p, R, t, xyz, huber_delta)
     Jp_w = Jp * w[:, None, None]
     Jl_w = Jl * w[:, None, None]
     live = w != 0       # zero-weight rows (invalid, padding, behind the camera) add 0
-    U = _seg_sum(K, kf, torch.einsum("oai,oaj->oij", Jp_w, Jp), live)
-    g_p = _seg_sum(K, kf, -torch.einsum("oai,oa->oi", Jp_w, r), live)
-    V = _seg_sum(M, lm, torch.einsum("oai,oaj->oij", Jl_w, Jl), live)
-    g_l = _seg_sum(M, lm, -torch.einsum("oai,oa->oi", Jl_w, r), live)
+    U = seg_sum(plans.kf, torch.einsum("oai,oaj->oij", Jp_w, Jp), live)
+    g_p = seg_sum(plans.kf, -torch.einsum("oai,oa->oi", Jp_w, r), live)
+    V = seg_sum(plans.lm, torch.einsum("oai,oaj->oij", Jl_w, Jl), live)
+    g_l = seg_sum(plans.lm, -torch.einsum("oai,oa->oi", Jl_w, r), live)
     Wb = torch.einsum("oai,oaj->oij", Jp_w, Jl)
-    A = _seg_sum(M * K, lm * K + kf, Wb, live).reshape(M, K, 6, 3)
+    A = seg_sum(plans.lm_kf, Wb, live).reshape(M, K, 6, 3)
     return U, g_p, V, g_l, A
 
 
@@ -290,8 +336,9 @@ def lm_schur(p: BAProblem, cost0, cost_fn, iterations: int, huber_delta: float,
     R, t, xyz, cost = p.R, p.t, p.xyz, cost0
     lam = torch.full((), init_lambda, dtype=torch.float32, device=p.R.device)
     accepts = []
+    plans = ba_plans(p)
     for _ in range(iterations):
-        U, g_p, V, g_l, A = _build_blocks(p, R, t, xyz, huber_delta)
+        U, g_p, V, g_l, A = _build_blocks(p, R, t, xyz, huber_delta, plans)
         if refine_landmarks:
             Vinv, S_off, g_off = _eliminate_landmarks(V, g_l, A, p.lm_valid, lam)
         else:
@@ -332,25 +379,26 @@ def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
     lam = torch.full((), init_lambda, dtype=torch.float32, device=p.R.device)
     cost = cost0
     accepts = []
+    plans = ba_plans(p, pairs=False)
     for _ in range(iterations):
         r, w, kf, lm, Jp, Jl = _obs_jacobians(p, R, t, xyz, huber_delta)
         Jp_w = Jp * w[:, None, None]
         Jl_w = Jl * w[:, None, None]
-        U = _seg_sum(K, kf, torch.einsum("oai,oaj->oij", Jp_w, Jp))
-        g_p = _seg_sum(K, kf, -torch.einsum("oai,oa->oi", Jp_w, r))
-        V = _seg_sum(M, lm, torch.einsum("oai,oaj->oij", Jl_w, Jl))
-        g_l = _seg_sum(M, lm, -torch.einsum("oai,oa->oi", Jl_w, r))
+        U = seg_sum(plans.kf, torch.einsum("oai,oaj->oij", Jp_w, Jp))
+        g_p = seg_sum(plans.kf, -torch.einsum("oai,oa->oi", Jp_w, r))
+        V = seg_sum(plans.lm, torch.einsum("oai,oaj->oij", Jl_w, Jl))
+        g_l = seg_sum(plans.lm, -torch.einsum("oai,oa->oi", Jl_w, r))
         Vinv = _inv3x3(torch.where(lm_active[:, None, None], V + lam * eye3, eye3))
         Ud = U + lam * torch.eye(6, dtype=U.dtype, device=U.device)
 
         def lm_pass(v_pose, Jp=Jp, Jl_w=Jl_w, Vinv=Vinv, kf=kf, lm=lm):
             Jpv = torch.einsum("oab,ob->oa", Jp, v_pose[kf])
-            s = _seg_sum(M, lm, torch.einsum("oab,oa->ob", Jl_w, Jpv))
+            s = seg_sum(plans.lm, torch.einsum("oab,oa->ob", Jl_w, Jpv))
             return torch.einsum("mbc,mc->mb", Vinv, s) * lm_active[:, None]
 
         def off_to_pose(u_lm, Jl=Jl, Jp_w=Jp_w, kf=kf, lm=lm):
             Jlu = torch.einsum("oab,ob->oa", Jl, u_lm[lm])
-            return _seg_sum(K, kf, torch.einsum("oab,oa->ob", Jp_w, Jlu))
+            return seg_sum(plans.kf, torch.einsum("oab,oa->ob", Jp_w, Jlu))
 
         def S_matvec(v, Ud=Ud):
             v = v * fmask
@@ -383,7 +431,7 @@ def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
         d_pose = torch.where(torch.isfinite(x), x, 0.0) * fmask
         if refine_landmarks:
             Jpd = torch.einsum("oab,ob->oa", Jp, d_pose[kf])
-            s = _seg_sum(M, lm, torch.einsum("oab,oa->ob", Jl_w, Jpd))
+            s = seg_sum(plans.lm, torch.einsum("oab,oa->ob", Jl_w, Jpd))
             d_lm = torch.einsum("mbc,mc->mb", Vinv, g_l - s) * lm_active[:, None]
         else:
             d_lm = torch.zeros_like(xyz)

@@ -16,9 +16,9 @@ from typing import NamedTuple
 import torch
 
 from zenslam_tpu_torch.estimation.epipolar import estimate_2d2d_scaled
-from zenslam_tpu_torch.estimation.fusion import PoseCandidate, fuse_poses, take
+from zenslam_tpu_torch.estimation.fusion import PoseCandidate, fuse_poses
 from zenslam_tpu_torch.estimation.pnp import solve_pnp_ransac
-from zenslam_tpu_torch.estimation.ransac import gumbel
+from zenslam_tpu_torch.estimation.ransac import gumbel, take
 from zenslam_tpu_torch.estimation.rigid import solve_rigid_ransac
 from zenslam_tpu_torch.geometry.camera import StereoRig
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse, so3_orthonormalize
@@ -119,8 +119,7 @@ def estimate_pose_cascade(noise: CascadeNoise, rig: StereoRig,
 
     R = so3_orthonormalize(pick(rp["R"][0], R1c0, R2c0, R3, R_pred))
     t = pick(rp["t"][0], t1c0, t2c0, t3, t_pred)
-    method = pick(*(torch.tensor(m, dtype=torch.int32, device=X0.device)
-                    for m in range(5)))
+    method = pick(*torch.arange(5, dtype=torch.int32, device=X0.device))
     zero_i = torch.zeros((), dtype=torch.int64, device=X0.device)
     n_inl = pick(rp["n_inliers"][0], rp["n_inliers"][1], r2["n_inliers"],
                  n3.to(torch.int64), zero_i)

@@ -1,6 +1,7 @@
-"""Essential-matrix RANSAC, pose recovery and metric scale from prior
-landmarks — counterpart of ``zenslam_tpu/estimation/epipolar.py``
-(``estimate_2d2d_scaled`` and what it calls)."""
+"""The 8-point algorithm, fundamental and essential RANSAC, pose recovery
+and metric scale from prior landmarks — counterpart of
+``zenslam_tpu/estimation/epipolar.py``. RANSAC draws are an input (``noise``,
+Gumbel), as in ``estimation/ransac.py``."""
 
 from __future__ import annotations
 
@@ -9,9 +10,11 @@ import math
 import torch
 
 from zenslam_tpu_torch.estimation.pnp import normalize_pixels
-from zenslam_tpu_torch.estimation.ransac import gather_rows, ransac_sample_indices
-from zenslam_tpu_torch.geometry.polar import inv_spd, project_rank2
+from zenslam_tpu_torch.estimation.ransac import (
+    best_hypothesis, gather_rows, gumbel, ransac_sample_indices, take)
+from zenslam_tpu_torch.geometry.polar import inv_spd, project_rank2, smallest_eigvec_3
 from zenslam_tpu_torch.geometry.triangulate import triangulate_dlt
+from zenslam_tpu_torch.utils.device import upload_constant
 
 
 def _hartley_normalize(pts, w):
@@ -64,6 +67,19 @@ def _eight_point(pa, pb, w=None):
     return F / torch.clamp(norm, min=1e-12)
 
 
+def fundamental_8pt(pa, pb, w=None):
+    """Fundamental matrix from pixel pairs (..., n, 2) by the normalised
+    8-point algorithm: rank 2, unit Frobenius norm; ``w`` (..., n) weights."""
+    return _eight_point(pa, pb, w)
+
+
+def essential_8pt(na, nb, w=None):
+    """8-point on NORMALISED image coordinates -> essential matrix (rank 2;
+    ``recover_pose_from_essential``'s decomposition enforces the (1, 1, 0)
+    spectrum)."""
+    return _eight_point(na, nb, w)
+
+
 def _sampson_distance(F, pa, pb):
     """First-order geometric (Sampson) distance; F (..., 3, 3) -> (..., n)."""
     ones = torch.ones_like(pa[..., :1])
@@ -74,6 +90,31 @@ def _sampson_distance(F, pa, pb):
     num = (qb * Fqa).sum(-1) ** 2
     den = Fqa[..., 0] ** 2 + Fqa[..., 1] ** 2 + Ftqb[..., 0] ** 2 + Ftqb[..., 1] ** 2
     return num / torch.clamp(den, min=1e-12)
+
+
+def solve_fundamental_ransac(noise, pa, pb, valid, threshold: float = 2.0, iters: int = 256,
+                             generator: torch.Generator | None = None):
+    """RANSAC fundamental matrix with Sampson scoring, threshold in pixels,
+    refit on the inliers. ``noise`` (iters, n) Gumbel draws; when None they
+    are drawn from ``generator`` (a new one, at torch's default seed, when
+    that is None too).
+    Returns dict(F, inliers, n_inliers, ok)."""
+    if noise is None:
+        gen = generator if generator is not None else torch.Generator(device=pa.device)
+        noise = gumbel(gen, (iters, pa.shape[0]), pa.device)
+    thr2 = threshold * threshold
+    idx = ransac_sample_indices(noise, valid, 8)
+    Fs = fundamental_8pt(gather_rows(pa, idx), gather_rows(pb, idx))
+    scores = ((_sampson_distance(Fs, pa, pb) < thr2) & valid).sum(-1)
+    F0 = take(Fs, best_hypothesis(scores))
+    inl0 = (_sampson_distance(F0, pa, pb) < thr2) & valid
+    F = fundamental_8pt(pa, pb, w=inl0.to(pa.dtype))
+    inl = (_sampson_distance(F, pa, pb) < thr2) & valid
+    better = inl.sum() >= inl0.sum()
+    F = torch.where(better, F, F0)
+    inliers = torch.where(better, inl, inl0)
+    n = inliers.sum()
+    return {"F": F, "inliers": inliers, "n_inliers": n, "ok": n >= 8}
 
 
 def solve_essential_ransac(noise, K, pa, pb, valid, threshold: float = 1.0):
@@ -88,7 +129,7 @@ def solve_essential_ransac(noise, K, pa, pb, valid, threshold: float = 1.0):
     d = _sampson_distance(Es, na, nb)
     scores = ((d < thr2) & valid).sum(-1)
     best = torch.argmax(scores)
-    E0 = Es[best]
+    E0 = take(Es, best)
     inl0 = (_sampson_distance(E0, na, nb) < thr2) & valid
     E = _eight_point(na, nb, w=inl0.to(pa.dtype))
     inl = (_sampson_distance(E, na, nb) < thr2) & valid
@@ -99,22 +140,68 @@ def solve_essential_ransac(noise, K, pa, pb, valid, threshold: float = 1.0):
     return {"E": E, "inliers": inliers, "n_inliers": n, "ok": n >= 8}
 
 
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _unit(v):
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-30)
+
+
+def _least_aligned_axis(v):
+    """The coordinate axis least aligned with ``v``: crossed with ``v``, it
+    gives a vector orthogonal to ``v`` that is never near zero."""
+    return torch.nn.functional.one_hot(torch.argmin(v.abs(), dim=-1), 3).to(v.dtype)
+
+
+def _rank2_svd(A):
+    """(U, Vᵀ) of the SVD A = U diag(s) Vᵀ of a rank-2 3x3 ``A`` (an
+    8-point essential matrix, rank 2 by ``project_rank2``), both rotations,
+    without LAPACK, so without the host read ``torch.linalg.svd`` makes on
+    CUDA: v3 the null vector of AᵀA (``smallest_eigvec_3``; its zero
+    eigenvalue is far from the others), v1 and v2 the 2x2 eigenproblem on
+    its complement in closed form (one Jacobi rotation), u1, u2 = A v1,
+    A v2 made orthonormal, u3 = u1 × u2, v3 = v1 × v2. Not a general SVD:
+    where A's two smallest singular values are close, v3 converges
+    slowly."""
+    AtA = A.transpose(-1, -2) @ A
+    n = smallest_eigvec_3(AtA)
+    b1 = _unit(_cross(n, _least_aligned_axis(n)))
+    b2 = _cross(n, b1)
+    m00 = (b1 * (AtA @ b1[..., None])[..., 0]).sum(-1)
+    m01 = (b1 * (AtA @ b2[..., None])[..., 0]).sum(-1)
+    m11 = (b2 * (AtA @ b2[..., None])[..., 0]).sum(-1)
+    theta = 0.5 * torch.atan2(2.0 * m01, m00 - m11)     # the larger eigenvalue's vector
+    c, s = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+    v1 = c * b1 + s * b2
+    v2 = c * b2 - s * b1
+    Av1 = (A @ v1[..., None])[..., 0]
+    Av2 = (A @ v2[..., None])[..., 0]
+    s1 = torch.linalg.vector_norm(Av1, dim=-1)
+    u1 = _unit(torch.where(s1[..., None] > 1e-30, Av1, b1))
+    w2 = Av2 - (u1 * Av2).sum(-1, keepdim=True) * u1
+    s2 = torch.linalg.vector_norm(w2, dim=-1)
+    # a rank-1 A leaves u2 free: any unit vector orthogonal to u1
+    u2 = _unit(torch.where(s2[..., None] > 1e-30, w2, _cross(u1, _least_aligned_axis(u1))))
+    U = torch.stack([u1, u2, _cross(u1, u2)], dim=-1)
+    Vt = torch.stack([v1, v2, _cross(v1, v2)], dim=-2)
+    return U, Vt
+
+
 def _masked_median(x, mask):
     n_valid = mask.sum()
     srt, _ = torch.sort(torch.where(mask, x, float("inf")))
     mid = torch.clamp((n_valid - 1) // 2, 0, x.shape[0] - 1)
     mid2 = torch.clamp(n_valid // 2, 0, x.shape[0] - 1)
-    return 0.5 * (srt[mid] + srt[mid2])
+    return 0.5 * (take(srt, mid) + take(srt, mid2))
 
 
 def recover_pose_from_essential(E, K, pa, pb, valid):
     """Pick the (R, t) of the four decompositions of E with the most masked
     points in front of both cameras. Returns (R, t, n_good), |t| = 1."""
-    U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.sign(torch.linalg.det(U))
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    U, Vt = _rank2_svd(E)
+    W = upload_constant(torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                                     dtype=E.dtype), E.device)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     tu = U[:, 2]
@@ -131,7 +218,7 @@ def recover_pose_from_essential(E, K, pa, pb, valid):
     best = torch.argmax(counts)
     Rs = torch.stack([c[0] for c in cands])
     ts = torch.stack([c[1] for c in cands])
-    return Rs[best], ts[best], counts[best]
+    return take(Rs, best), take(ts, best), take(counts, best)
 
 
 def estimate_2d2d_scaled(noise, K, pa, pb, valid, X_prev_cam, has3d, R_prev, t_prev,

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from zenslam_tpu_torch.estimation.ransac import take
+
 
 class PoseCandidate(NamedTuple):
     R: torch.Tensor             # (M, 3, 3)
@@ -22,11 +24,6 @@ class PoseCandidate(NamedTuple):
     n_inliers: torch.Tensor     # (M,)
     is_line: torch.Tensor       # (M,) bool
     valid: torch.Tensor         # (M,) bool
-
-
-def take(x, i):
-    """x[i] for a 0-d index tensor, on the device."""
-    return x.index_select(0, i.reshape(1))[0]
 
 
 def fuse_poses(cands: PoseCandidate, err_scale=2.0, inlier_boost_at: int = 50,

@@ -30,6 +30,18 @@ def ransac_sample_indices(noise, valid, n_sample: int):
     return idx[..., :n_sample]
 
 
+def best_hypothesis(scores):
+    """argmax with the tie going to the lowest index, as int32 (the
+    reference's ``best_hypothesis``)."""
+    return torch.argmax(scores).to(torch.int32)
+
+
+def take(x, i):
+    """x[i] for a 0-d index tensor, kept on the device: indexing by a device
+    scalar reads it to the host."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def gather_rows(x, idx):
     """x (..., n, d) gathered by idx (..., k, m) along n -> (..., k, m, d)."""
     k, m = idx.shape[-2], idx.shape[-1]

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from zenslam_tpu_torch.estimation.ransac import gather_rows, ransac_sample_indices
+from zenslam_tpu_torch.estimation.ransac import gather_rows, ransac_sample_indices, take
 from zenslam_tpu_torch.geometry.polar import rotation_from_cov
 
 
@@ -39,7 +39,7 @@ def solve_rigid_ransac(noise, src, dst, valid, threshold: float = 0.05):
     err = _align_err(Rs, ts, src, dst)
     scores = ((err < threshold) & valid).sum(-1)
     best = torch.argmax(scores)
-    R0, t0 = Rs[best], ts[best]
+    R0, t0 = take(Rs, best), take(ts, best)
     inliers = (_align_err(R0, t0, src, dst) < threshold) & valid
     R, t = umeyama(src, dst, w=inliers.to(src.dtype))
     new_inliers = (_align_err(R, t, src, dst) < threshold) & valid

@@ -127,8 +127,8 @@ def essential_from_pose(R, t):
 def fundamental_from_rig(rig: StereoRig):
     """F = K_r^-T [t]x R K_l^-1, normalised so F[2, 2] = 1."""
     E = essential_from_pose(rig.R_rl, rig.t_rl)
-    Kl_inv = torch.linalg.inv(rig.left.K)
-    Kr_inv_T = torch.linalg.inv(rig.right.K).T
+    Kl_inv = torch.linalg.inv_ex(rig.left.K).inverse
+    Kr_inv_T = torch.linalg.inv_ex(rig.right.K).inverse.T
     F = Kr_inv_T @ E @ Kl_inv
     f22 = F[2, 2]
     return F / (f22 + torch.where(f22.abs() < 1e-12, 1e-12, 0.0))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from zenslam_tpu_torch.utils.device import upload_constant
+
 
 def polar_so3(M, iters: int = 22):
     """Orthogonal polar factor of (…,3,3) M by Newton–Schulz; returns (Q, s)
@@ -154,8 +156,8 @@ def smallest_eigvec_3(A, iters: int = 6, shift: float = 1e-4):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     An = A / scale
     Ainv = _inv3(An + shift * eye)
-    V = torch.tensor([[0.36, 0.48], [0.48, 0.64], [0.80, -0.60]],
-                     dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (3, 2))
+    V = upload_constant(torch.tensor([[0.36, 0.48], [0.48, 0.64], [0.80, -0.60]],
+                                     dtype=A.dtype), A.device).expand(A.shape[:-2] + (3, 2))
     for _ in range(iters):
         V = Ainv @ V
         V = V / torch.clamp(torch.sqrt((V * V).sum(-2, keepdim=True)), min=1e-30)

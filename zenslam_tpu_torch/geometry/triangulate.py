@@ -1,10 +1,16 @@
-"""Two-view DLT triangulation and the epipolar residual — counterpart of
-``zenslam_tpu/geometry/triangulate.py`` (``triangulate_dlt``,
-``epipolar_residual``)."""
+"""Two-view triangulation (DLT, midpoint, rectified), the triangulation
+gates and the epipolar residual — counterpart of
+``zenslam_tpu/geometry/triangulate.py``."""
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
+
+from zenslam_tpu_torch.geometry.camera import StereoRig, project
+from zenslam_tpu_torch.geometry.lie import se3_apply
 
 
 def _projection_matrix(K, R, t):
@@ -70,6 +76,85 @@ def triangulate_dlt(K0, R0, t0, K1, R1, t1, uv0, uv1):
     w = X_h[..., 3]
     w_safe = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
     return X_h[..., :3] / w_safe[..., None]
+
+
+def _matvec(R, t):
+    return (R @ t[..., None])[..., 0]
+
+
+def triangulate_midpoint(K0, R0, t0, K1, R1, t1, uv0, uv1):
+    """Midpoint of the common perpendicular between the two viewing rays."""
+    K0i = torch.linalg.inv_ex(K0).inverse
+    K1i = torch.linalg.inv_ex(K1).inverse
+    ones = torch.ones_like(uv0[..., :1])
+    d0_cam = torch.cat([uv0, ones], dim=-1) @ K0i.transpose(-1, -2)
+    d1_cam = torch.cat([uv1, ones], dim=-1) @ K1i.transpose(-1, -2)
+    # ray origins and directions in the world frame
+    o0 = -_matvec(R0.transpose(-1, -2), t0)
+    o1 = -_matvec(R1.transpose(-1, -2), t1)
+    d0 = d0_cam @ R0    # R0ᵀ d0_cam, batched
+    d1 = d1_cam @ R1
+    d0 = d0 / (torch.linalg.vector_norm(d0, dim=-1, keepdim=True) + 1e-12)
+    d1 = d1 / (torch.linalg.vector_norm(d1, dim=-1, keepdim=True) + 1e-12)
+    b = o1 - o0
+    d0d1 = (d0 * d1).sum(-1)
+    denom = 1.0 - d0d1 * d0d1
+    denom = torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
+    bd0 = (b * d0).sum(-1)
+    bd1 = (b * d1).sum(-1)
+    s = (bd0 - d0d1 * bd1) / denom
+    u = (d0d1 * bd0 - bd1) / denom
+    p0 = o0 + s[..., None] * d0
+    p1 = o1 + u[..., None] * d1
+    return 0.5 * (p0 + p1)
+
+
+def triangulate_rectified(fx, baseline, cx_l, cx_r, cy, fy, uv_l, uv_r):
+    """Rectified stereo: depth z = fx * b / disparity, points in the LEFT
+    camera frame; the principal points may differ (cx_l, cx_r)."""
+    disparity = (uv_l[..., 0] - cx_l) - (uv_r[..., 0] - cx_r)
+    disp_safe = torch.where(disparity.abs() < 1e-6, torch.full_like(disparity, 1e-6),
+                            disparity)
+    z = fx * baseline / disp_safe
+    x = (uv_l[..., 0] - cx_l) / fx * z
+    y = (uv_l[..., 1] - cy) / fy * z
+    return torch.stack([x, y, z], dim=-1)
+
+
+class TriangulationGates(NamedTuple):
+    min_depth: float = 0.1
+    max_depth: float = 50.0
+    reprojection_threshold: float = 2.0
+    min_parallax_deg: float = 0.25
+    max_parallax_deg: float = 179.75
+    min_disparity: float = 1.0
+
+
+def triangulation_gates(rig: StereoRig, R_lw, t_lw, X_world, uv_l, uv_r,
+                        gates: TriangulationGates = TriangulationGates()):
+    """Validity mask over triangulated points: z > 0 in both cameras, left
+    depth within [min_depth, max_depth], reprojection error under the
+    threshold in both views, parallax between the rays from the two camera
+    centres within (min, max) degrees."""
+    R_rw = rig.R_rl @ R_lw
+    t_rw = _matvec(rig.R_rl, t_lw) + rig.t_rl
+    x_l = se3_apply(R_lw, t_lw, X_world)
+    x_r = se3_apply(R_rw, t_rw, X_world)
+    z_l, z_r = x_l[..., 2], x_r[..., 2]
+    cheirality = (z_l > 1e-6) & (z_r > 1e-6)
+    depth_ok = (z_l >= gates.min_depth) & (z_l <= gates.max_depth)
+    err_l = torch.linalg.vector_norm(project(rig.left, x_l) - uv_l, dim=-1)
+    err_r = torch.linalg.vector_norm(project(rig.right, x_r) - uv_r, dim=-1)
+    reproj_ok = (err_l < gates.reprojection_threshold) & (err_r < gates.reprojection_threshold)
+    c_l = -_matvec(R_lw.transpose(-1, -2), t_lw)
+    c_r = -_matvec(R_rw.transpose(-1, -2), t_rw)
+    r0 = X_world - c_l
+    r1 = X_world - c_r
+    cos_a = (r0 * r1).sum(-1) / (torch.linalg.vector_norm(r0, dim=-1)
+                                 * torch.linalg.vector_norm(r1, dim=-1) + 1e-12)
+    ang = torch.arccos(torch.clamp(cos_a, -1.0, 1.0)) * (180.0 / math.pi)
+    parallax_ok = (ang > gates.min_parallax_deg) & (ang < gates.max_parallax_deg)
+    return cheirality & depth_ok & reproj_ok & parallax_ok
 
 
 def epipolar_residual(F, uv_l, uv_r):

@@ -445,6 +445,14 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(data)
 
 
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """Grayscale PNG, 8 or 16 bit (the reference's name for ``write_png`` on
+    an (H, W) image)."""
+    if img.ndim != 2:
+        raise ValueError(f"write_png_gray takes an (H, W) image, got shape {img.shape}")
+    write_png(path, img)
+
+
 def export_dataset(seq: SyntheticSequence, root: str) -> None:
     """Write a sequence as an EuRoC-style folder: 8-bit PNGs named by
     nanosecond timestamps under cam0/data and cam1/data, groundtruth.csv

@@ -85,7 +85,7 @@ def select_grid_keypoints(score, existing_xy, existing_valid, cell_size: int = 1
     occupancy = torch.zeros(gh * gw, dtype=torch.bool, device=dev)
     # set True where valid; invalid entries write False into a spare slot
     occ = torch.cat([occupancy, occupancy[:1]])
-    occ[torch.where(existing_valid, ci * gw + cj, gh * gw)] = True
+    occ.index_fill_(0, torch.where(existing_valid, ci * gw + cj, gh * gw), True)
     cell_free = ~occ[:gh * gw].reshape(gh, gw)
 
     s_cells = score[:gh * cell_size, :gw * cell_size].reshape(

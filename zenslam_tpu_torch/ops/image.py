@@ -5,8 +5,9 @@ in [0, 1].
 
 The separable filters are shift-and-add with reflect padding in the same tap
 order as the reference. XLA's CPU backend contracts each tap's multiply-add
-into a fused multiply-add; ``fma`` reproduces that rounding, so the CPU
-results agree with the reference bit for bit.
+into a fused multiply-add; ``fma`` reproduces that rounding (in float64 on
+the CPU, with one fused float32 op on CUDA), so the CPU results agree with
+the reference bit for bit.
 """
 
 from __future__ import annotations
@@ -41,10 +42,29 @@ def _reflect_pad(img, r: int, dim: int):
     return torch.cat([left, img, right], dim=-1)
 
 
+def _fma_f64(a, b, c):
+    """a*b + c rounded once to float32, emulated in float64 (the float64
+    product of two float32 values is exact); ``a`` a float32 tensor or a
+    float32-exact Python float."""
+    a = a.double() if isinstance(a, torch.Tensor) else a
+    return (a * b.double() + c.double()).float()
+
+
+def _fma_fused(a, b, c):
+    """a*b + c as one fused float32 op on CUDA: ``add`` with a scalar
+    ``alpha`` (``c + alpha * b``) or ``addcmul`` for two tensors."""
+    if isinstance(a, torch.Tensor):
+        return torch.addcmul(c, a, b)
+    return torch.add(c, b, alpha=a)
+
+
 def fma(a, b, c):
-    """a*b + c rounded once to float32, as a fused multiply-add rounds it
-    (the float64 product of two float32 values is exact)."""
-    return (a.double() * b.double() + c.double()).float()
+    """a*b + c rounded once to float32, as a fused multiply-add rounds it:
+    the fused op on CUDA tensors, the float64 emulation on the CPU, where
+    torch's kernels need not fuse."""
+    if b.device.type == "cuda":
+        return _fma_fused(a, b, c)
+    return _fma_f64(a, b, c)
 
 
 def _shift_add(x, kernel, n: int, dim: int):
@@ -53,10 +73,10 @@ def _shift_add(x, kernel, n: int, dim: int):
     def tap(i):
         return x[..., i:i + n, :] if dim == -2 else x[..., :, i:i + n]
 
-    k = [float(v) for v in kernel]
-    acc = fma(torch.tensor(k[0]), tap(0), k[1] * tap(1))
+    k = [float(np.float32(v)) for v in kernel]   # the float32 weights
+    acc = fma(k[0], tap(0), k[1] * tap(1))
     for i in range(2, len(k)):
-        acc = fma(torch.tensor(k[i]), tap(i), acc)
+        acc = fma(k[i], tap(i), acc)
     return acc
 
 

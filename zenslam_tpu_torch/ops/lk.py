@@ -9,15 +9,16 @@ off-TPU: Scharr gradients on full-size stacked buffers, ``_sample_clamped``
 bilinear taps, a fixed iteration count with a convergence latch, every level
 gating status. It is what the slice is compared against on the CPU. The
 kernel path (``ops/lk_cuda.py``) follows the Pallas kernel's semantics
-instead.
+instead. ``pyramidal_lk`` is the one-direction tracker of the reference's
+public API on the same core; like the reference's, it runs no kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from zenslam_tpu_torch.ops.image import _pyr_down, scharr_gradients
-from zenslam_tpu_torch.utils.device import resolve_device
+from zenslam_tpu_torch.ops.image import _pyr_down, build_pyramid, scharr_gradients
+from zenslam_tpu_torch.utils.device import resolve_device, upload_constant
 
 
 def ragged_level_sizes(H: int, W: int, levels: int):
@@ -61,9 +62,37 @@ def ragged_to_stacked(levels_tuple):
     stack = torch.zeros((L, H, W), dtype=torch.float32, device=ref.device)
     for i, p in enumerate(levels_tuple):
         stack[i, :p.shape[0], :p.shape[1]] = p.float()
-    sizes = torch.tensor([[p.shape[0], p.shape[1]] for p in levels_tuple],
-                         dtype=torch.float32, device=ref.device)
+    sizes = upload_constant(torch.tensor([[p.shape[0], p.shape[1]] for p in levels_tuple],
+                                         dtype=torch.float32), ref.device)
     return stack, sizes
+
+
+def stack_pyramid(pyr):
+    """Tuple of (H/2^l, W/2^l) levels -> ((L, H, W) stack, (L, 2) sizes):
+    every level at the top-left of a zero (H, W) slice, ``sizes`` its true
+    (h, w)."""
+    return ragged_to_stacked(pyr)
+
+
+def stack_gradients(pyr):
+    """Per-level Scharr gradients, computed at the true level shapes (so the
+    borders are right) and stacked like ``stack_pyramid``: (gx, gy)."""
+    grads = [scharr_gradients(p) for p in pyr]
+    return (ragged_to_stacked([g[0] for g in grads])[0],
+            ragged_to_stacked([g[1] for g in grads])[0])
+
+
+def build_lk_pyramid(img, levels: int):
+    """Image -> (stacked pyramid (levels + 1, H, W), sizes (levels + 1, 2))."""
+    return stack_pyramid(build_pyramid(img, levels))
+
+
+def build_lk_pyramid_pair(img_l, img_r, levels: int):
+    """Both stereo pyramids in one batched pyrDown chain, stacked: returns
+    (stack_l, stack_r, sizes)."""
+    pyr_l, pyr_r = build_ragged_pyramid_pair(img_l, img_r, levels)
+    stack_l, sizes = stack_pyramid(pyr_l)
+    return stack_l, stack_pyramid(pyr_r)[0], sizes
 
 
 def _window_offsets(radius: int, device):
@@ -114,7 +143,7 @@ def _lk_core(prev_stack, prev_gx, prev_gy, next_stack, sizes, pts, init_pts,
     ok = valid
     err = None
     for lvl in range(L - 1, -1, -1):
-        scale = torch.tensor(1.0 / (2.0 ** lvl), dtype=torch.float32, device=pts.device)
+        scale = 1.0 / (2.0 ** lvl)
         h, w = sizes[lvl, 0], sizes[lvl, 1]
         prev_img, gx_img, gy_img, next_img = (
             prev_stack[lvl], prev_gx[lvl], prev_gy[lvl], next_stack[lvl])
@@ -177,3 +206,31 @@ def lk_forward_backward(prev_pyramid, next_pyramid, pts, valid, init_pts=None,
     fb_err = torch.linalg.vector_norm(bwd - pts, dim=-1)
     ok = valid & ok_f & ok_b & (fb_err <= fb_threshold)
     return fwd, ok, err
+
+
+def _is_levels(pyr) -> bool:
+    return isinstance(pyr, (tuple, list)) and pyr[0].dim() == 2
+
+
+def pyramidal_lk(prev_pyramid, next_pyramid, pts, valid, init_pts=None, radius: int = 10,
+                 iters: int = 10, eps: float = 0.01, min_eig_threshold: float = 1e-7,
+                 use_initial_flow: bool = False):
+    """Track ``pts`` (N, 2) from the prev to the next image through a
+    Gaussian pyramid, coarse to fine. Pyramids are tuples of levels from
+    ``ops.image.build_pyramid`` (stacked here, gradients at true level
+    shapes) or (stack, sizes) pairs from ``build_lk_pyramid`` (gradients on
+    the stacked buffers; each level's padding is masked by its bounds).
+    ``init_pts`` seeds the flow only with ``use_initial_flow``. Returns
+    (tracked (N, 2), status (N,) bool, err (N,) mean |residual| of the
+    finest level)."""
+    if _is_levels(prev_pyramid):
+        prev_stack, sizes = stack_pyramid(prev_pyramid)
+        prev_gx, prev_gy = stack_gradients(prev_pyramid)
+    else:
+        prev_stack, sizes = prev_pyramid
+        prev_gx, prev_gy = scharr_gradients(prev_stack)
+    next_stack = stack_pyramid(next_pyramid)[0] if _is_levels(next_pyramid) else next_pyramid[0]
+    if init_pts is None or not use_initial_flow:
+        init_pts = pts
+    return _lk_core(prev_stack, prev_gx, prev_gy, next_stack, sizes, pts, init_pts, valid,
+                    radius, iters, eps, min_eig_threshold)

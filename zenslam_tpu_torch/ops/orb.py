@@ -58,10 +58,10 @@ def _scan(x, dim: int):
     return out.movedim(0, dim)
 
 
-def orb_orientation(img, xy):
-    """Intensity-centroid orientation theta = atan2(m01, m10) per keypoint,
-    moments over the 31x31 square (zero outside the image) from integral
-    images. img (H, W); xy (N, 2). Returns (N,) radians."""
+def orb_moments(img):
+    """The intensity-centroid moments (m10, m01), each (H, W), of the 31x31
+    square around every pixel (zero outside the image), from integral
+    images."""
     H, W = img.shape
     r = _PATCH_RADIUS
     xg = torch.arange(W, dtype=torch.float32, device=img.device)[None, :] * torch.ones(
@@ -81,6 +81,14 @@ def orb_orientation(img, xy):
     bAy = box(img * yg)
     m10 = fma(-xg, bA, bAx)  # the reference's compiled form fuses these
     m01 = fma(-yg, bA, bAy)
+    return m10, m01
+
+
+def orb_orientation(img, xy):
+    """Intensity-centroid orientation theta = atan2(m01, m10) per keypoint
+    (``orb_moments``). img (H, W); xy (N, 2). Returns (N,) radians."""
+    H, W = img.shape
+    m10, m01 = orb_moments(img)
     xi = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, W - 1)
     yi = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, H - 1)
     flat = yi * W + xi

@@ -10,7 +10,7 @@ from zenslam_tpu_torch.pipeline.state import (
     SlamState,
     init_state,
 )
-from zenslam_tpu_torch.pipeline.step import slam_step
+from zenslam_tpu_torch.pipeline.step import make_slam_step, slam_step
 from zenslam_tpu_torch.pipeline.runner import run_sequence
 from zenslam_tpu_torch.pipeline.system import (
     BackendConfig,
@@ -23,4 +23,4 @@ from zenslam_tpu_torch.pipeline.system import (
 
 __all__ = ["BackendConfig", "FeatureTable", "FrameTelemetry", "LandmarkMap", "MotionModel",
            "SlamConfig", "SlamState", "SlamSystem", "create_system", "flush_pipeline",
-           "init_state", "process_frame", "run_sequence", "run_system", "slam_step"]
+           "init_state", "make_slam_step", "process_frame", "run_sequence", "run_system", "slam_step"]

@@ -252,6 +252,39 @@ def empty_desc(cfg: SlamConfig, n: int, device=None):
     return torch.zeros((n, 8), dtype=torch.int32, device=device)
 
 
+def empty_features(cfg: SlamConfig, device=None) -> FeatureTable:
+    """An empty keypoint table of ``cfg.max_keypoints`` slots on ``device``
+    (default CUDA, raising when absent)."""
+    dev = resolve_device(device)
+    n = cfg.max_keypoints
+    f32, i32 = torch.float32, torch.int32
+    return FeatureTable(
+        xy=torch.zeros((n, 2), dtype=f32, device=dev),
+        uv_r=torch.zeros((n, 2), dtype=f32, device=dev),
+        stereo_ok=torch.zeros(n, dtype=torch.bool, device=dev),
+        desc=empty_desc(cfg, n, dev),
+        lm_idx=torch.full((n,), -1, dtype=i32, device=dev),
+        track_id=torch.full((n,), -1, dtype=i32, device=dev),
+        age=torch.zeros(n, dtype=i32, device=dev),
+        valid=torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def empty_landmarks(cfg: SlamConfig, device=None) -> LandmarkMap:
+    """An empty landmark map of ``cfg.max_landmarks`` slots on ``device``
+    (default CUDA, raising when absent)."""
+    dev = resolve_device(device)
+    m = cfg.max_landmarks
+    f32, i32 = torch.float32, torch.int32
+    return LandmarkMap(
+        xyz=torch.zeros((m, 3), dtype=f32, device=dev),
+        desc=empty_desc(cfg, m, dev),
+        valid=torch.zeros(m, dtype=torch.bool, device=dev),
+        last_seen=torch.full((m,), -1, dtype=i32, device=dev),
+        n_obs=torch.zeros(m, dtype=i32, device=dev),
+        generation=torch.zeros(m, dtype=i32, device=dev),
+        color=torch.zeros(m, dtype=f32, device=dev))
+
+
 def empty_lines(cfg: SlamConfig, device=None) -> LineTable:
     n = cfg.max_keylines
     f32, i32 = torch.float32, torch.int32
@@ -301,25 +334,14 @@ def init_state(cfg: SlamConfig, image_shape, seed: int = 0, device=None) -> Slam
 
     dev = resolve_device(device)
     H, W = image_shape
-    n, m = cfg.max_keypoints, cfg.max_landmarks
     f32, i32 = torch.float32, torch.int32
 
     def z(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    def full(shape, v, dtype=i32):
-        return torch.full(shape, v, dtype=dtype, device=dev)
-
     eye = torch.eye(3, dtype=f32, device=dev)
     return SlamState(
-        features=FeatureTable(
-            xy=z(n, 2), uv_r=z(n, 2), stereo_ok=z(n, dtype=torch.bool),
-            desc=empty_desc(cfg, n, dev), lm_idx=full((n,), -1), track_id=full((n,), -1),
-            age=z(n, dtype=i32), valid=z(n, dtype=torch.bool)),
-        lmap=LandmarkMap(
-            xyz=z(m, 3), desc=empty_desc(cfg, m, dev), valid=z(m, dtype=torch.bool),
-            last_seen=full((m,), -1), n_obs=z(m, dtype=i32),
-            generation=z(m, dtype=i32), color=z(m)),
+        features=empty_features(cfg, dev), lmap=empty_landmarks(cfg, dev),
         lines=empty_lines(cfg, dev), line_map=empty_line_map(cfg, dev),
         R_cw=eye.clone(), t_cw=z(3),
         motion=MotionModel(vel=z(3), acc=z(3), vel_ang=z(3), acc_ang=z(3),

@@ -240,7 +240,7 @@ def _temporal_rematch(cfg, rig: StereoRig, feats: FeatureTable, prev_desc, prev_
     Rpi, tpi = se3_inverse(R_prev, t_prev)
     R_rel, t_rel = se3_compose(R_pred, t_pred, Rpi, tpi)
     E = essential_from_pose(R_rel, t_rel)
-    Kinv = torch.linalg.inv(rig.left.K)
+    Kinv = torch.linalg.inv_ex(rig.left.K).inverse
     F = Kinv.T @ E @ Kinv
     gate = epipolar_gate(F, prev_xy, feats.xy, cfg.temporal_match_epipolar)
     idx, _, ok = _match_desc(cfg, prev_desc, feats.desc, lost, free, gate)
@@ -543,3 +543,11 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         n_lines=n_lines, n_line_triangulated=n_line_tri, line_map_size=line_map_size,
         R_cw=R_cw, t_cw=t_cw)
     return new_state, telem
+
+
+def make_slam_step(cfg: SlamConfig, rig: StereoRig):
+    """Close over the config and rig: returns ``step(state, img_l, img_r)``,
+    which is ``slam_step(cfg, rig, state, img_l, img_r)``."""
+    def step(state, img_l, img_r):
+        return slam_step(cfg, rig, state, img_l, img_r)
+    return step

@@ -18,10 +18,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def upload_constant(a, device) -> torch.Tensor:
-    """A copy of the host array ``a`` on ``device``. A copy to a CUDA device
-    goes from pinned memory without blocking, so it does not synchronise
-    (the pinned block is not reused before the copy has run)."""
-    t = torch.from_numpy(a)
+    """A copy of the host array or CPU tensor ``a`` on ``device``. A copy to
+    a CUDA device goes from pinned memory without blocking, so it does not
+    synchronise (the pinned block is not reused before the copy has run)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
