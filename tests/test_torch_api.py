@@ -21,10 +21,33 @@ inputs (256x320 scenes, as tests/test_lk_pallas.py):
 - ``empty_features`` / ``empty_landmarks``: equal fields;
 - ``make_slam_step``: bit-identical to ``slam_step`` (the port alone);
 - ``write_png_gray``: byte-identical files.
+
+The reference's arguments: every parameter of every public top-level
+function, and every field of every public NamedTuple or dataclass, of every
+module of ``zenslam_tpu/`` (read by ``ast``) exists on the port's
+counterpart or stands in ARG_RENAMED with its port name and a reason; and
+the arguments that close that gap hold against the reference:
+
+- the ratio-test matchers (Hamming and L2, ``use_ratio`` and
+  ``cross_check`` on and off, with duplicate and near-duplicate rows):
+  Hamming ``idx``, ``dist``, ``ok`` identical, L2 ``idx`` and ``ok``
+  identical and ``dist`` within 1e-5;
+- ``umeyama(with_scale=True)`` on noisy weighted similarity transforms,
+  single and batched: R, t, s within 1e-5; without scale, s is 1 and (R,
+  t) bit-identical to the rigid fit's;
+- ``harris_score_multiscale(k=0.06)`` within 1e-6 of its maximum against
+  the reference's per-scale ``harris_score`` at that k (the reference's
+  ``harris_score_multiscale`` takes ``k`` and drops it;
+  tests/test_torch_families.py holds the two at the default),
+  ``detect_grid_keypoints``' ``mask_radius`` changing no output,
+  ``ragged_to_stacked`` with ``true_sizes`` equal to the reference's on
+  TPU-padded levels.
 """
 
 import ast
+import dataclasses
 import importlib
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -36,22 +59,30 @@ import pytest
 import torch
 
 from zenslam_tpu.estimation import epipolar as JE
+from zenslam_tpu.estimation import rigid as JR
 from zenslam_tpu.estimation.ransac import best_hypothesis as j_best_hypothesis
 from zenslam_tpu.geometry import triangulate as JT
 from zenslam_tpu.geometry.camera import project
 from zenslam_tpu.geometry.lie import se3_apply, so3_exp
 from zenslam_tpu.io.synthetic import default_rig, smooth_texture
 from zenslam_tpu.io.synthetic import write_png_gray as j_write_png_gray
+from zenslam_tpu.ops import harris as JH
 from zenslam_tpu.ops import lk as JLK
+from zenslam_tpu.ops import match as JM
 from zenslam_tpu.ops.image import build_pyramid as j_build_pyramid
 from zenslam_tpu.ops.image import remap as j_remap
+from zenslam_tpu.ops.lk_pallas import padded_level_shape
 from zenslam_tpu.pipeline import state as JS
 from zenslam_tpu_torch import convert
 from zenslam_tpu_torch.estimation import epipolar as PE
+from zenslam_tpu_torch.estimation import rigid as PR
 from zenslam_tpu_torch.estimation.ransac import best_hypothesis
 from zenslam_tpu_torch.geometry import triangulate as PT
 from zenslam_tpu_torch.io import synthetic as PSyn
+from zenslam_tpu_torch.ops import fast as PF
+from zenslam_tpu_torch.ops import harris as PH
 from zenslam_tpu_torch.ops import lk as PLK
+from zenslam_tpu_torch.ops import match as PM
 from zenslam_tpu_torch.pipeline import state as PS
 from zenslam_tpu_torch.pipeline.step import make_slam_step, slam_step
 
@@ -72,6 +103,58 @@ RENAMED = {
     ("zenslam_tpu.ops.orb_pallas", "orb_pallas"): ("zenslam_tpu_torch.ops", "orb_steered_brief"),
     ("zenslam_tpu.ops.orb_pallas", "orb_descriptors_pallas"):
         ("zenslam_tpu_torch.ops", "orb_steered_brief"),
+    ("zenslam_tpu.ops.lk_pallas", "ragged_level_sizes"):
+        ("zenslam_tpu_torch.ops.lk", "ragged_level_sizes"),
+}
+
+_NOISE = "randomness is injected: the caller's Gumbel draws replace the PRNG key"
+_ITERS = "the hypothesis count is the first dimension of the injected noise"
+_DRAW = "randomness is injected: the k-means seed draws replace the PRNG key"
+_PALLAS = "a Pallas/TPU setting with no counterpart on the card"
+# Reference parameters (and fields) the port names otherwise or leaves out:
+# (reference function, parameter) -> (the port's name or None, the reason).
+ARG_RENAMED = {
+    **{(f"zenslam_tpu.estimation.{f}", "key"): ("noise", _NOISE) for f in (
+        "cascade.estimate_pose_cascade", "epipolar.solve_fundamental_ransac",
+        "epipolar.solve_essential_ransac", "epipolar.estimate_2d2d_scaled",
+        "pnp.solve_pnp_ransac", "ransac.ransac_sample_indices", "rigid.solve_rigid_ransac")},
+    **{(f"zenslam_tpu.estimation.{f}", "iters"): ("noise", _ITERS) for f in (
+        "epipolar.solve_essential_ransac", "epipolar.estimate_2d2d_scaled",
+        "pnp.solve_pnp_ransac", "ransac.ransac_sample_indices", "rigid.solve_rigid_ransac")},
+    **{("zenslam_tpu.estimation.cascade.estimate_pose_cascade", f"{k}_iters"): ("noise", _ITERS)
+       for k in ("pnp", "rigid", "essential")},
+    ("zenslam_tpu.backend.bow.build_vocabulary", "key"): ("draw", _DRAW),
+    ("zenslam_tpu.backend.bow.build_vocabulary_tree", "key"): ("draw", _DRAW),
+    ("zenslam_tpu.pipeline.state.SlamState", "rng_key"):
+        ("rng_seed", "a seed and a step count on the host stand for the JAX key"),
+    ("zenslam_tpu.parallel.dist_ba.make_ba_mesh", "n_devices"):
+        ("n_shards", "shards of one process group, not JAX devices"),
+    ("zenslam_tpu.parallel.dist_ba.make_ba_mesh", "devices"):
+        ("group", "a torch.distributed group (and a device) for the JAX device list"),
+    ("zenslam_tpu.parallel.multihost.init_multihost", "platform"):
+        ("backend", "the collective backend (nccl, gloo) for the JAX platform"),
+    ("zenslam_tpu.parallel.multihost.init_multihost", "local_device_count"):
+        ("local_shards", "shards per rank for JAX's local device count"),
+    ("zenslam_tpu.parallel.offline.run_offline_multiprocess", "platform"):
+        ("device", "the workers' torch device for the JAX platform"),
+    ("zenslam_tpu.analysis.overlays.write_png", "arr"):
+        ("img", "the port's overlays write through io/synthetic.py's PNG encoder"),
+    ("zenslam_tpu.ops.lk_pallas.padded_level_shape", "h"):
+        (None, "TPU tile padding; the port's pyramid levels are unpadded"),
+    ("zenslam_tpu.ops.lk_pallas.padded_level_shape", "w"):
+        (None, "TPU tile padding; the port's pyramid levels are unpadded"),
+    ("zenslam_tpu.ops.lk_pallas.lk_ragged_pallas", "block"):
+        (None, "points per Pallas program; the CUDA kernel runs a block per point"),
+    ("zenslam_tpu.ops.lk_pallas.lk_ragged_pallas", "sizes"):
+        (None, "the true sizes of TPU-padded levels; the port's levels are unpadded"),
+    ("zenslam_tpu.ops.lk_pallas.lk_ragged_pallas", "unroll"): (None, _PALLAS),
+    ("zenslam_tpu.ops.lk_pallas.lk_ragged_pallas", "interpret"): (None, _PALLAS),
+    ("zenslam_tpu.ops.orb_pallas.orb_pallas", "block"): (None, _PALLAS),
+    ("zenslam_tpu.ops.orb_pallas.orb_pallas", "interpret"): (None, _PALLAS),
+    ("zenslam_tpu.ops.orb_pallas.orb_descriptors_pallas", "img"):
+        ("sm", "the entry takes the smoothed bf16 image (orb_cuda.orb_descriptors_kernel "
+               "takes img)"),
+    ("zenslam_tpu.ops.orb_pallas.orb_descriptors_pallas", "interpret"): (None, _PALLAS),
 }
 
 
@@ -106,6 +189,76 @@ def test_exports_count_the_reference_names():
 def test_renamed_counterparts(ref, port):
     assert hasattr(importlib.import_module(ref[0]), ref[1])
     assert callable(getattr(importlib.import_module(port[0]), port[1]))
+
+
+def _ast_params(node) -> list:
+    """The parameter names of a ``def``, or the annotated fields of a class
+    (NamedTuple or dataclass) body."""
+    if isinstance(node, ast.ClassDef):
+        return [b.target.id for b in node.body
+                if isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name)]
+    a = node.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            + [v for v in (a.vararg, a.kwarg) if v is not None]]
+
+
+def _reference_api() -> list:
+    """(dotted name, parameters) of every public top-level function and
+    every public class with annotated fields in the modules of
+    ``zenslam_tpu/``."""
+    out = []
+    for path in sorted((ROOT / "zenslam_tpu").rglob("*.py")):
+        mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        for node in ast.parse(path.read_text()).body:
+            if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                    and not node.name.startswith("_") and _ast_params(node)):
+                out.append((f"{mod}.{node.name}", _ast_params(node)))
+    return out
+
+
+REFERENCE_API = _reference_api()
+
+
+def _port_counterpart(name: str):
+    """The port's object for a reference dotted name (RENAMED first), or
+    None where the port has no module or name for it."""
+    mod, attr = name.rsplit(".", 1)
+    mod, attr = RENAMED.get((mod, attr), (mod.replace("zenslam_tpu", "zenslam_tpu_torch", 1),
+                                          attr))
+    try:
+        return getattr(importlib.import_module(mod), attr, None)
+    except ModuleNotFoundError:
+        return None
+
+
+def _port_params(obj) -> list:
+    if obj is None:
+        return []
+    if isinstance(obj, type) and hasattr(obj, "_fields"):
+        return list(obj._fields)
+    if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+        return [f.name for f in dataclasses.fields(obj)]
+    return list(inspect.signature(obj).parameters)
+
+
+@pytest.mark.parametrize("name,params", REFERENCE_API, ids=[n for n, _ in REFERENCE_API])
+def test_reference_arguments_have_counterparts(name, params):
+    have = _port_params(_port_counterpart(name))
+    missing = [p for p in params if p not in have and (name, p) not in ARG_RENAMED]
+    assert not missing, f"the port's counterpart of {name} lacks {missing}"
+    for p in params:
+        if (name, p) in ARG_RENAMED:
+            port_name, reason = ARG_RENAMED[(name, p)]
+            assert reason and (port_name is None or port_name in have), (name, p)
+
+
+def test_arg_renamed_rows_are_live():
+    """Every ARG_RENAMED row names a reference parameter the port lacks."""
+    api = dict(REFERENCE_API)
+    assert len(api) > 250
+    for (name, p) in ARG_RENAMED:
+        assert p in api[name], (name, p)
+        assert p not in _port_params(_port_counterpart(name)), (name, p)
 
 
 def test_analysis_exports_lazily_without_matplotlib():
@@ -393,3 +546,131 @@ def test_write_png_gray_matches_reference(tmp_path):
         assert (tmp_path / "j.png").read_bytes() == (tmp_path / "p.png").read_bytes()
     with pytest.raises(ValueError, match=r"\(H, W\)"):
         PSyn.write_png_gray(str(tmp_path / "rgb.png"), np.zeros((4, 4, 3), np.uint8))
+
+
+# ------------------------------------------------- the reference's arguments
+
+def _match_inputs(seed: int):
+    """Descriptor sets with exact duplicates (ties) and near duplicates
+    (close second bests): packed binary (64, 8) uint32 and float (64, 32)."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    a = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    a[8:12] = a[0:4]                                        # duplicate rows of A
+    b = a[rng.permutation(n)].copy()
+    b ^= (rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+          & rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+          & rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32))
+    b[20:24] = b[16:20]                                     # duplicate rows of B
+    b[24:28] = b[28:32] ^ np.uint32(1)                      # near duplicates: 1 bit apart
+    fa = rng.normal(0, 1, (n, 32)).astype(np.float32)
+    fa /= np.linalg.norm(fa, axis=1, keepdims=True)
+    fa[8:12] = fa[0:4]
+    fb = fa[rng.permutation(n)] + rng.normal(0, 0.05, (n, 32)).astype(np.float32)
+    fb[20:24] = fb[16:20]
+    fb[24:28] = fb[28:32] + np.float32(1e-3)
+    va, vb = rng.random(n) < 0.9, rng.random(n) < 0.9
+    return a, b, fa, fb, va, vb
+
+
+@pytest.mark.parametrize("use_ratio,cross_check", [(False, True), (True, True), (True, False),
+                                                   (False, False)])
+def test_ratio_matchers_match_reference(use_ratio, cross_check):
+    a, b, fa, fb, va, vb = _match_inputs(17)
+    kw = dict(ratio=0.8, cross_check=cross_check, use_ratio=use_ratio)
+    j = JM.match_descriptors(jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb),
+                             max_distance=100, **kw)
+    p = PM.match_descriptors(_t(a.view(np.int32)), _t(b.view(np.int32)), _t(va), _t(vb),
+                             max_distance=100, **kw)
+    for x, y in zip(p, j):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    j = JM.match_descriptors_float(jnp.asarray(fa), jnp.asarray(fb), jnp.asarray(va),
+                                   jnp.asarray(vb), max_distance=0.6, **kw)
+    pf = PM.match_descriptors_float(_t(fa), _t(fb), _t(va), _t(vb), max_distance=0.6, **kw)
+    np.testing.assert_array_equal(pf[0].numpy(), np.asarray(j[0]))
+    np.testing.assert_array_equal(pf[2].numpy(), np.asarray(j[2]))
+    np.testing.assert_allclose(pf[1].numpy(), np.asarray(j[1]), atol=1e-5, rtol=0)
+    n_ok = (int(p[2].sum()), int(pf[2].sum()))
+    assert min(n_ok) > 10, n_ok
+    if use_ratio:   # the duplicates' rows fail the test: their second best ties the best
+        plain = PM.match_descriptors(_t(a.view(np.int32)), _t(b.view(np.int32)), _t(va),
+                                     _t(vb), max_distance=100, cross_check=cross_check)
+        assert int(p[2].sum()) < int(plain[2].sum())
+
+
+def _similarity(rng, n: int, batch=()):
+    """Noisy similarity-transformed points with weights: (src, dst, w)."""
+    from zenslam_tpu_torch.geometry.lie import so3_exp as p_so3_exp
+
+    w_rot = rng.normal(0, 0.6, batch + (3,)).astype(np.float32)
+    R = p_so3_exp(_t(w_rot)).numpy()
+    s = rng.uniform(0.5, 2.0, batch).astype(np.float32)
+    t = rng.normal(0, 1, batch + (3,)).astype(np.float32)
+    src = rng.normal(0, 1, batch + (n, 3)).astype(np.float32)
+    dst = (s[..., None, None] * np.einsum("...ij,...nj->...ni", R, src) + t[..., None, :]
+           + rng.normal(0, 0.01, batch + (n, 3))).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, batch + (n,)).astype(np.float32)
+    return src, dst, w
+
+
+def test_umeyama_with_scale_matches_reference():
+    rng = np.random.default_rng(4)
+    src, dst, w = _similarity(rng, 40)
+    j_scaled = jax.jit(lambda a, b, c: JR.umeyama(a, b, c, with_scale=True))
+    jR, jt, js = (np.asarray(x) for x in j_scaled(jnp.asarray(src), jnp.asarray(dst),
+                                                   jnp.asarray(w)))
+    R, t, s = (x.numpy() for x in PR.umeyama(_t(src), _t(dst), _t(w), with_scale=True))
+    for a, b in ((R, jR), (t, jt), (s, js)):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    # batched: each problem as the reference solves it alone (vmapped)
+    bs, bd, bw = _similarity(rng, 12, (3, 2))
+    R, t, s = (x.numpy() for x in PR.umeyama(_t(bs), _t(bd), _t(bw), with_scale=True))
+    assert R.shape == (3, 2, 3, 3) and t.shape == (3, 2, 3) and s.shape == (3, 2)
+    j = jax.jit(jax.vmap(j_scaled))(*(jnp.asarray(x.reshape((6,) + x.shape[2:])) for x in (bs, bd, bw)))
+    for a, b in zip((R, t, s), j):
+        np.testing.assert_allclose(a, np.asarray(b).reshape(a.shape), atol=1e-5, rtol=0)
+    # without scale: s is 1 and (R, t) the rigid fit, as the callers unpack it
+    R, t, s = PR.umeyama(_t(bs), _t(bd), _t(bw))
+    assert s.shape == (3, 2) and bool((s == 1).all())
+    Rr, tr, sr = PR.umeyama(_t(bs), _t(bd), _t(bw), with_scale=False)
+    assert torch.equal(R, Rr) and torch.equal(t, tr)
+    jR, jt, js = jax.jit(JR.umeyama)(jnp.asarray(bs[1, 0]), jnp.asarray(bd[1, 0]),
+                                     jnp.asarray(bw[1, 0]))
+    assert float(js) == 1.0
+    np.testing.assert_allclose(R[1, 0].numpy(), np.asarray(jR), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(t[1, 0].numpy(), np.asarray(jt), atol=1e-5, rtol=0)
+
+
+def test_harris_k_mask_radius_and_true_sizes(lk_pair):
+    img = np.asarray(lk_pair[0])
+    # k reaches every scale: the reference's per-scale harris_score at k=0.06
+    k = 0.06
+    ref = np.asarray(JH.harris_score(jnp.asarray(img), k=k))
+    cur = jnp.asarray(img)
+    for sc in range(1, 3):
+        cur = 0.25 * (cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2])
+        up = np.repeat(np.repeat(np.asarray(JH.harris_score(cur, k=k)), 1 << sc, 0), 1 << sc, 1)
+        ref = np.maximum(ref, up[:H, :W])
+    ref = np.where(ref > 1e-7, ref, 0.0)
+    mine = PH.harris_score_multiscale(_t(img), k=k).numpy()
+    scale = float(np.abs(ref).max())
+    assert np.abs(mine - ref).max() <= 1e-6 * scale
+    at_default = PH.harris_score_multiscale(_t(img)).numpy()
+    assert np.abs(mine - at_default).max() > 1e-3 * scale       # k changed the response
+    # mask_radius is accepted in the reference's position and changes nothing
+    ex, ev = torch.zeros((32, 2)), torch.zeros(32, dtype=torch.bool)
+    a = PF.detect_grid_keypoints(_t(img), ex, ev, 10.0 / 255.0, 16, 128, 8.0, 16, True)
+    b = PF.detect_grid_keypoints(_t(img), ex, ev, 10.0 / 255.0, 16, 128, 2.0, 16, True)
+    c = PF.detect_grid_keypoints(_t(img), ex, ev, max_keypoints=128, subpixel=True)
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+    assert int(a[2].sum()) > 50
+    # ragged_to_stacked crops TPU-padded levels (random texels in the
+    # padding) to their true sizes, as the reference does
+    tsz = PLK.ragged_level_sizes(H, W, 4)
+    rng = np.random.default_rng(9)
+    jl = [rng.random(padded_level_shape(h, w)).astype(np.float32) for h, w in tsz]
+    assert any(x.shape != hw for x, hw in zip(jl, tsz))
+    js, jsz = JLK.ragged_to_stacked([jnp.asarray(x) for x in jl], tsz)
+    ps, psz = PLK.ragged_to_stacked(tuple(_t(x) for x in jl), tsz)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(psz.numpy(), np.asarray(jsz))

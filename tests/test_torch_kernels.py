@@ -65,9 +65,11 @@ def _points(seed, n):
 def test_lk_plain_matches_pallas(pair, with_init):
     r0, r1, tsz, p0, p1 = pair
     xy, valid, init = _points(11 + with_init, 24)
+    # the reference takes init_pts=None as the points themselves
+    # (lk_pallas.py:377-378): passing them keeps one compile for both cases
     tj, oj, ej = lk_ragged_pallas(
         r0, r1, jnp.asarray(xy), jnp.asarray(valid),
-        init_pts=jnp.asarray(init) if with_init else None, block=8, sizes=tsz,
+        init_pts=jnp.asarray(init if with_init else xy), block=8, sizes=tsz,
         unroll=True, interpret=True, **LK_ARGS)
     tp, op, ep = lk_cuda.lk_ragged(
         p0, p1, torch.from_numpy(xy), torch.from_numpy(valid),

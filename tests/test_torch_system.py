@@ -421,7 +421,7 @@ def test_no_module_of_the_port_imports_jax():
             "zenslam_tpu_torch.ops.lines", "zenslam_tpu_torch.pipeline.lines_step",
             "zenslam_tpu_torch.parallel.dist_ba", "zenslam_tpu_torch.parallel.multihost",
             "zenslam_tpu_torch.parallel.offline", "zenslam_tpu_torch.parallel.offline_worker",
-            "zenslam_tpu_torch.io.bal"} <= set(names)
+            "zenslam_tpu_torch.io.bal", "zenslam_tpu_torch.eval.fulldress"} <= set(names)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

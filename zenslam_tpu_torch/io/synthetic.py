@@ -3,7 +3,8 @@
 the closed room of the loop workload, the host (numpy) renderer, a device
 (torch) renderer, the default rig, ``make_sequence`` for the 'strafe',
 'forward', 'arc' and 'orbit' motions with optional pixel noise and body-frame
-IMU (``make_imu``; no lines, no photometric effects), and the dataset
+IMU (``make_imu``), the corridor's stripes and the sensor's photometric
+effects (vignette, exposure flicker, noise), and the dataset
 writers: sequences rendered through a distorted camchain
 (``make_distorted_sequence``, ``distort_sequence``), Kalibr YAML, PNG and
 EuRoC-layout folders with ``imu0/data.csv`` (``export_dataset``);
@@ -286,17 +287,24 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
                   imu_samples_per_frame: int = 10, gravity_w=(0.0, 9.81, 0.0),
                   device_render: bool = False, pixel_noise: float = 0.0,
                   orbit_radius: float = 1.5, orbit_revolutions: float = 1.0,
+                  exposure_jitter: float = 0.0, vignette: float = 0.0,
                   device=None) -> SyntheticSequence:
     """Render a stereo sequence with groundtruth. motion: 'strafe' (x
     translation), 'forward' (z), 'arc' (translation + yaw) or 'orbit'
     (``orbit_revolutions`` turns of radius ``orbit_radius`` inside the closed
     room, looking outward: it revisits its starting view, the loop-closure
     workload). with_lines: stripes on the corridor's planes
-    (``make_corridor_world``; the orbit's room has none). pixel_noise:
-    additive Gaussian image noise σ, drawn from ``rng`` after the world, left
-    then right per frame. With device_render the frames are rendered on
-    ``device`` and returned as (T, H, W) tensors there; the host renderer
-    returns numpy arrays. The rig lives on ``device``."""
+    (``make_corridor_world``; the orbit's room has none). The sensor's
+    photometric effects, each off at 0 (the full-dress run's ``--hard`` set):
+    vignette, a radial falloff ``1 - vignette * r²`` (r² 1 at the image's
+    corners); exposure_jitter, σ of a per-frame, per-camera log-gain;
+    pixel_noise, additive Gaussian image noise σ. Per frame, ``rng`` draws
+    (after the world) the left gain, the right gain, the left noise, the
+    right noise; with any effect on, the frames are clipped to [0, 1]. With
+    device_render the frames are rendered on ``device`` and returned as (T,
+    H, W) tensors there, the effects applied there in the dtypes numpy gives
+    the host render; the host renderer returns numpy arrays. The rig lives
+    on ``device``."""
     if motion not in ("strafe", "forward", "arc", "orbit"):
         raise NotImplementedError(f"motion {motion!r} is not ported (strafe, forward, arc, orbit)")
     world = (make_room_world(rng) if motion == "orbit"
@@ -332,14 +340,42 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         R_cw = R_wc.T
         return R_cw, -R_cw @ c_w
 
-    def noisy(img):
-        """The image plus Gaussian noise, clipped to [0, 1], as float32."""
-        if pixel_noise <= 0:
-            return img.astype(np.float32) if isinstance(img, np.ndarray) else img
-        n = rng.normal(0, pixel_noise, tuple(img.shape))
-        if isinstance(img, np.ndarray):
-            return np.clip(img + n, 0, 1).astype(np.float32)
-        return torch.clamp(img.double() + torch.from_numpy(n).to(img.device), 0, 1).float()
+    photometric = vignette > 0 or exposure_jitter > 0 or pixel_noise > 0
+    vig = None
+    if vignette > 0:
+        yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+        r2 = (((xx - width / 2) / (width / 2)) ** 2
+              + ((yy - height / 2) / (height / 2)) ** 2) / 2.0
+        vig = (1.0 - vignette * r2).astype(np.float32)
+        if device_render:
+            vig = torch.from_numpy(vig).to(dev)
+
+    def wide(img):
+        """``img`` ready for a float64 operand: numpy promotes by itself, a
+        tensor (float32 from the device render) is widened."""
+        return img.double() if isinstance(img, torch.Tensor) else img
+
+    def sensor(li, ri):
+        """The pair through the vignette, the exposure gains and the noise,
+        in the reference's draw order; float32, clipped when any is on."""
+        if vig is not None:
+            li, ri = li * vig, ri * vig
+        if exposure_jitter > 0:
+            gl = np.exp(rng.normal(0, exposure_jitter))
+            gr = np.exp(rng.normal(0, exposure_jitter))
+            li, ri = wide(li) * gl, wide(ri) * gr
+        if pixel_noise > 0:
+            nl = rng.normal(0, pixel_noise, tuple(li.shape))
+            nr = rng.normal(0, pixel_noise, tuple(ri.shape))
+            if isinstance(li, torch.Tensor):
+                nl, nr = torch.from_numpy(nl).to(dev), torch.from_numpy(nr).to(dev)
+            li, ri = wide(li) + nl, wide(ri) + nr
+        if isinstance(li, torch.Tensor):
+            return ((torch.clamp(li, 0, 1).float(), torch.clamp(ri, 0, 1).float())
+                    if photometric else (li, ri))
+        if photometric:
+            li, ri = np.clip(li, 0, 1), np.clip(ri, 0, 1)
+        return li.astype(np.float32), ri.astype(np.float32)
 
     timestamps = np.arange(n_frames, dtype=np.float64) * dt
     lefts, rights, Rs, ts = [], [], [], []
@@ -353,8 +389,9 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         else:  # the host render is float64
             li = render_view(world, rig.left, R_cw, t_cw, height, width)
             ri = render_view(world, rig.right, R_rcw, t_rcw, height, width)
-        lefts.append(noisy(li))
-        rights.append(noisy(ri))
+        li, ri = sensor(li, ri)
+        lefts.append(li)
+        rights.append(ri)
         Rs.append(R_cw.astype(np.float32))
         ts.append(t_cw.astype(np.float32))
     imu = {}

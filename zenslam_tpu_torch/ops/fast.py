@@ -130,9 +130,11 @@ def select_grid_keypoints(score, existing_xy, existing_valid, cell_size: int = 1
 
 def detect_grid_keypoints(img, existing_xy, existing_valid,
                           threshold: float = 10.0 / 255.0, cell_size: int = 16,
-                          max_keypoints: int = 512, border: int = 16,
-                          subpixel: bool = False):
-    """FAST + NMS + one best per unoccupied cell + global top-K."""
+                          max_keypoints: int = 512, mask_radius: float = 8.0,
+                          border: int = 16, subpixel: bool = False):
+    """FAST + NMS + one best per unoccupied cell + global top-K.
+    ``mask_radius`` is kept for the reference's argument order and, as
+    there, unused: occupied cells mask the existing keypoints."""
     score = fast_score(img, threshold)
     return select_grid_keypoints(score, existing_xy, existing_valid,
                                  cell_size=cell_size, max_keypoints=max_keypoints,

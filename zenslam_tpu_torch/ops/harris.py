@@ -30,13 +30,14 @@ def upsample_nearest(r, f: int, H: int, W: int):
     return r.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)[:H, :W]
 
 
-def harris_score_multiscale(img, n_scales: int = 3, threshold: float = 1e-7):
-    """Max Harris response over ``n_scales`` octaves (coarse scales on 2x2
-    averages, nearest-upsampled back). (H, W) f32, 0 below ``threshold``."""
+def harris_score_multiscale(img, n_scales: int = 3, k: float = 0.04, threshold: float = 1e-7):
+    """Max Harris response (constant ``k``) over ``n_scales`` octaves (coarse
+    scales on 2x2 averages, nearest-upsampled back). (H, W) f32, 0 below
+    ``threshold``."""
     H, W = img.shape
-    score = harris_score(img)
+    score = harris_score(img, k)
     cur = img
     for s in range(1, n_scales):
         cur = 0.25 * (cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2])
-        score = torch.maximum(score, upsample_nearest(harris_score(cur), 1 << s, H, W))
+        score = torch.maximum(score, upsample_nearest(harris_score(cur, k), 1 << s, H, W))
     return torch.where(score > threshold, score, 0.0)

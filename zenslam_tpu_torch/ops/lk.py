@@ -53,9 +53,13 @@ def empty_ragged_pyramid(H: int, W: int, levels: int, dtype=torch.float32,
                  for h, w in ragged_level_sizes(H, W, levels + 1))
 
 
-def ragged_to_stacked(levels_tuple):
+def ragged_to_stacked(levels_tuple, true_sizes=None):
     """Ragged levels -> ((L, H, W) f32 stack with each level top-left in a
-    zero buffer, (L, 2) f32 sizes) — the fallback tracker's format."""
+    zero buffer, (L, 2) f32 sizes) — the fallback tracker's format. With
+    ``true_sizes`` ((h, w) per level) each level is cropped to its size
+    first, as the reference crops its padded levels."""
+    if true_sizes is not None:
+        levels_tuple = [p[:h, :w] for p, (h, w) in zip(levels_tuple, true_sizes)]
     H, W = levels_tuple[0].shape
     L = len(levels_tuple)
     ref = levels_tuple[0]

@@ -39,8 +39,11 @@ def hamming_matrix(packed_a, packed_b):
     return (na[:, None] + nb[None, :] - 2.0 * ab).to(torch.int32)
 
 
-def _select_matches(D, valid_a, valid_b, max_distance, cross_check, gate_mask, big):
-    """Row/column argmin match selection (argmin ties go to the first index)."""
+def _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_ratio,
+                    gate_mask, big):
+    """Row/column argmin match selection (argmin ties go to the first index),
+    with Lowe's ratio test against each row's second best when
+    ``use_ratio``."""
     invalid = (~valid_a[:, None]) | (~valid_b[None, :])
     if gate_mask is not None:
         invalid = invalid | (~gate_mask)
@@ -48,6 +51,11 @@ def _select_matches(D, valid_a, valid_b, max_distance, cross_check, gate_mask, b
     idx_b = torch.argmin(D, dim=1).to(torch.int32)
     best = D.amin(dim=1)
     ok = best <= max_distance
+    if use_ratio:
+        # the second best: each row's best column set to ``big`` on a copy
+        D2 = D.scatter(1, idx_b.long()[:, None], big)
+        second = D2.amin(dim=1)
+        ok = ok & (best.float() < ratio * second.float())
     if cross_check:
         back = torch.argmin(D, dim=0).to(torch.int32)
         ok = ok & (back[idx_b.long()] == torch.arange(D.shape[0], dtype=torch.int32,
@@ -57,12 +65,14 @@ def _select_matches(D, valid_a, valid_b, max_distance, cross_check, gate_mask, b
 
 
 def match_descriptors(packed_a, packed_b, valid_a, valid_b, max_distance: int = 64,
-                      cross_check: bool = True, gate_mask=None):
-    """Match A to B descriptors (cross-checked). gate_mask: optional (N, M)
-    bool of allowed pairs. Returns (idx_b (N,) int32 or -1, dist (N,) int32,
-    ok (N,) bool)."""
+                      ratio: float = 0.8, cross_check: bool = True, use_ratio: bool = False,
+                      gate_mask=None):
+    """Match A to B descriptors, cross-checked and/or with Lowe's ratio test
+    (``best < ratio * second``, when ``use_ratio``). gate_mask: optional (N,
+    M) bool of allowed pairs. Returns (idx_b (N,) int32 or -1, dist (N,)
+    int32, ok (N,) bool)."""
     D = hamming_matrix(packed_a, packed_b)
-    return _select_matches(D, valid_a, valid_b, max_distance, cross_check,
+    return _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_ratio,
                            gate_mask, BIG)
 
 
@@ -75,11 +85,14 @@ def l2_matrix(desc_a, desc_b):
 
 
 def match_descriptors_float(desc_a, desc_b, valid_a, valid_b, max_distance: float = 0.35,
-                            cross_check: bool = True, gate_mask=None):
+                            ratio: float = 0.8, cross_check: bool = True,
+                            use_ratio: bool = False, gate_mask=None):
     """L2 matcher for float descriptors; the contract of
-    ``match_descriptors`` with a Euclidean (not squared) ``max_distance``."""
+    ``match_descriptors`` with a Euclidean (not squared) ``max_distance``,
+    the ratio test on Euclidean distances as Lowe's."""
     D = torch.sqrt(l2_matrix(desc_a, desc_b) + 1e-12)
-    return _select_matches(D, valid_a, valid_b, max_distance, cross_check, gate_mask, 1e9)
+    return _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_ratio,
+                           gate_mask, 1e9)
 
 
 def _lsh_planes(dim: int = 128, bits: int = 256, seed: int = 77) -> np.ndarray:
