@@ -42,17 +42,25 @@ Phases (each one fatal on failure):
    launched in each; then the LK kernel (temporal, with init_pts, stereo)
    and the ORB kernel against their plain versions on the default rig's
    96x128 pyramids with the lk and orb phases' tolerances;
-5. slice: ``slam_step`` alone, default SlamConfig, on the first 40 frames of
-   a 1024x1024 'arc' sequence rendered on the card (8 warm-up frames, then
-   the measured frames with every launch counter set to 0 first): exactly 2
+5. slice: ``slam_step`` alone through ``zenslam_tpu_torch.eval.bench``'s
+   ``run_fps`` (``bench.py``'s counterpart), default SlamConfig, 40 frames
+   of a 1024x1024 'arc' sequence rendered on the card (8 warm-up frames,
+   then the measured frames; the counters at 0 before the call, the
+   launches of the measured frames from the benchmark's record): exactly 2
    LK and 1 ORB launches per frame, pose_ok on >= 90% of frames, ATE <
    0.05 m; prints ms/frame, fps, peak memory;
-6. system: the full keyframe system as ``bench.py:run_full_system_fps``
-   drives it: ``create_system`` with the default SlamConfig and
-   ``BackendConfig(telemetry_lag=3)``, ``process_frame`` over the 80-frame
-   sequence (a throwaway system first warms the back end's first uses;
-   frames 0-9 untimed, then counters at 0, frames 10-79 and
-   ``flush_pipeline`` timed up to a synchronise). Prints ms/frame, fps, the
+5a. bench: the benchmark's secondary run, ``run_fps(512, 384, 60)``, with
+   the slice phase's checks; prints fps beside the card's name; then the LK
+   kernel (the last frame's temporal call with init_pts and its stereo
+   call, on the 384x512 to 48x64 pyramids, with the step's arguments) and
+   the ORB kernel (the last frame's describe call) against their plain
+   versions with the lk and orb phases' tolerances;
+6. system: the full keyframe system through ``eval/bench.py``'s
+   ``run_full_system_fps``: ``create_system`` with the default SlamConfig
+   and ``BackendConfig(telemetry_lag=3)``, ``process_frame`` over the
+   80-frame sequence (a throwaway system over every frame and the flush
+   first; then frames 0-9 untimed, frames 10-79 and ``flush_pipeline``
+   timed up to a synchronise). Prints ms/frame, fps, the
    median host ``backend_ms`` per keyframe and of each of its phases,
    keyframes, BA runs, vocabulary trains, archive size, peak memory, ATE,
    pose_ok, launches, and the host syncs (the system's waits on its
@@ -87,7 +95,8 @@ Phases (each one fatal on failure):
    at least one loop closes, and the keyframe ATE with loops is below the
    one without; 2 LK + 1 ORB launches per frame in each run;
 8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
-   448x336 orbit, frames 80-95 skipped) for the port alone, relocalisation
+   448x336 orbit, frames 80-95 skipped, run up to frame KIDNAP_END; the
+   test runs on to 111) for the port alone, relocalisation
    off and on, on the kernel path and on the f32 path that test runs: the
    kidnap breaks the run without reloc (tail revisit error > 1 m), 1-4
    relocalisations happen with it, on the f32 path one at or after the
@@ -130,7 +139,7 @@ Phases (each one fatal on failure):
    steady ms/frame of both runs, 2 LK + 1 ORB launches per frame, what the
    VIO branch adds to one ``slam_step`` (the state before the middle frame,
    rectified, with its IMU slice; device kernels and busy ms by
-   ``torch.profiler``, host ms over 10 alternating pairs),
+   ``torch.profiler``, host ms over COST_ROUNDS alternating pairs),
    and the implicit synchronises by source line, none of them in ``imu/``
    or ``estimation/fusion.py``; a third run (``fulldress_lines``) on that
    script's ``--hard`` dataset (``eval/fulldress.py:build_dataset(...,
@@ -149,7 +158,7 @@ Phases (each one fatal on failure):
    LK kernel against its plain version on the last frame's two endpoint
    batches with the step's arguments (temporal with init_pts, stereo); what
    the keyline branch adds to that step (device kernels and busy ms by
-   ``torch.profiler``, host ms over 10 alternating pairs); (b) the keylines
+   ``torch.profiler``, host ms over COST_ROUNDS alternating pairs); (b) the keylines
    recipe ``options/euroc_mh_lines.yaml`` through ``app.main`` on an
    APP_FRAMES-frame 752x480 folder of the corridor with stripes rendered
    through ``options/euroc_camchain.yaml`` with ``imu0/data.csv``: as
@@ -179,7 +188,7 @@ Phases (each one fatal on failure):
    frame REFRESH_CHECK_FRAME bit-identical to a full pass; what each
    family adds to one step from its run's state before frame
    FAMILY_COST_FRAME (``torch.profiler`` kernels and busy ms, host ms over
-   10 alternating rounds); (b) ``TestFloatPathLoopClosure``'s workload
+   COST_ROUNDS alternating rounds); (b) ``TestFloatPathLoopClosure``'s workload
    (96-frame 320x240 orbit, seed 21) through ``run_system`` with SIFT
    (Harris) on the kernel path (2 LK and 0 ORB launches per frame), and
    SIFT and ORB (FAST) on the f32 path that test runs: a loop closes
@@ -210,15 +219,20 @@ Phases (each one fatal on failure):
    dense and 8-shard runs part, teacher-forced, the 8-shard solver within
    1e-6 of the dense solver on the same observation rows, beside the
    dense solver on a permutation of its own rows; (d) the dry run's stage
-   2, the 10-frame 192x144 strafe (seed 4), through 1 and 2 offline
-   worker processes on the card and the in-process chunker, on the kernel and the f32 path: the
-   2-worker stitch within 5e-3 of the in-process one on both, and the dry
-   run's check (the truth's sign, within 0.15 m) held, at a third of its
-   bar, on the x-displacement that the images fix, dx + 6 m x the yaw
-   change, of the stitch and the serial run (at 192x144 the 28 degree view
-   of the wall 6 m ahead confuses a strafe with a yaw); the raw dx and the
-   dry run's verdict on it printed; the wall times of 1 and 2 workers
-   (reported);
+   2, the 10-frame 192x144 strafe (seed 4), through 2 offline worker
+   processes on the card and the in-process chunker (2 chunks, and 1: the
+   serial run), on the kernel and the f32 path: the 2-worker stitch within
+   5e-3 of the in-process one on both, and the dry run's check (the
+   truth's sign, within 0.15 m) held, at a third of its bar, on the
+   x-displacement that the images fix, dx + 6 m x the yaw change, of the
+   stitch and the serial run (at 192x144 the 28 degree view of the wall 6 m
+   ahead confuses a strafe with a yaw); the raw dx and the dry run's
+   verdict on it printed; the 2 workers' wall time (reported);
+13a. scaling: ``zenslam_tpu_torch.eval.scaling``'s problem (K=32, M=16384,
+   O=131072, ``scaling_bench.py``'s draws) through ``dist_bundle_adjust``
+   at 1 and 8 local shards of the one-rank group, one untimed and one timed
+   solve each: the cost falls at both, the 8-shard R and t within 5e-3 of
+   the 1-shard solve; ms per LM iteration printed;
 14. the seconds of all phases, a ``kernels`` JSON line (``launches`` is the
    system phase's count, ``launches_by_path`` every path's), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
@@ -265,13 +279,14 @@ import numpy as np
 
 N_FRAMES = 40        # slice phase: frames of the rendered sequence it runs
 N_WARMUP = 8
+BENCH_W, BENCH_H, BENCH_FRAMES = 512, 384, 60   # bench phase: bench.py's secondary run
 SYSTEM_FRAMES = 80   # system phase (bench.py:run_full_system_fps)
 SYSTEM_WARMUP = 10
 REPEAT_FRAMES = 40   # system phase: frames of the two untimed determinism repeats
 CG_WINDOW = 24       # system_cg: a window above 16 keyframes, where "auto" picks CG
-APP_FRAMES = 56      # app phase: the exported EuRoC-layout sequence
-APP_CKPT_FRAME = 28  # app phase: the checkpoint round trip saves after this frame
-FULLDRESS_FRAMES = 60
+APP_FRAMES = 40      # app phase: the exported EuRoC-layout sequence
+APP_CKPT_FRAME = 20  # app phase: the checkpoint round trip saves after this frame
+FULLDRESS_FRAMES = 40
 LINES_FRAMES = 24    # lines phase: slam_step with keylines on a 1024x1024 strafe
 LINES_WARMUP = 8
 FAMILIES = {         # families phase: run name -> SlamConfig fields
@@ -285,6 +300,7 @@ FAMILIES = {         # families phase: run name -> SlamConfig fields
 FAMILY_FRAMES = 24        # families phase: frames of each run (the slice's first 24)
 FAMILY_COST_FRAME = 20    # families phase: the step whose cost is measured
 REFRESH_CHECK_FRAME = 16  # families phase: the step whose needs rows are checked
+KIDNAP_END = 104          # kidnap phase: the last frame run + 1 (frames 96-103 after the jump)
 SIZE = 1024
 FMA_FRAMES = 4       # fma phase: slam_step frames compared between the two fma forms
 API_FRAMES = 4       # api phase: make_slam_step frames against slam_step
@@ -307,6 +323,7 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 REPEATS = 5          # timed repeats per turn
 DEVICE_CALLS = 50    # wrapper calls captured in one CUDA graph
+COST_ROUNDS = 5      # step_cost: alternating rounds of host timing
 
 
 class PhaseError(RuntimeError):
@@ -1034,45 +1051,95 @@ def phase_rigs(dev) -> tuple:
     return paths, lk_err, orb_err
 
 
-def phase_slice(seq, dev):
+def arc_checks(tag: str, rec: dict, n_frames: int, n_warmup: int) -> tuple:
+    """The checks of a ``run_fps`` run filled into ``rec``: finite poses, 2 LK
+    + 1 ORB launches per timed frame, pose_ok on >= 90% of the frames after
+    the first, ATE < 0.05 m. Returns (pose_ok share, ATE)."""
     import torch
 
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
-    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
 
-    cfg = SlamConfig()
-    state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
-    Rs, ts, ok = [], [], []
-    for t in range(N_WARMUP):
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
-        Rs.append(tel.R_cw), ts.append(tel.t_cw), ok.append(tel.pose_ok)
-    torch.cuda.synchronize()
+    tels, seq, launches = rec["tels"], rec["seq"], rec["launches"]
+    n = n_frames - n_warmup
+    R = torch.stack([t.R_cw for t in tels]).cpu().numpy()
+    tt = torch.stack([t.t_cw for t in tels]).cpu().numpy()
+    pose_ok = torch.stack([t.pose_ok for t in tels]).cpu().numpy()
+    require(np.isfinite(R).all() and np.isfinite(tt).all(), f"{tag}: non-finite pose")
+    ate = ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw))
+    ok_share = float(pose_ok[1:].mean())
+    require(launches == {"lk_fb": 2 * n, "orb": n},
+            f"{tag}: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
+    require(ok_share >= 0.9, f"{tag}: pose_ok on {ok_share:.3f} < 0.9 of frames")
+    require(ate < 0.05, f"{tag}: ATE {ate:.4f} m >= 0.05 m")
+    return ok_share, ate
+
+
+def phase_slice(dev):
+    """``slam_step`` alone through ``eval/bench.py:run_fps`` at SIZE² over
+    N_FRAMES frames."""
+    import torch
+
+    from zenslam_tpu_torch.eval.bench import run_fps
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
-    for t in range(N_WARMUP, N_FRAMES):
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
-        Rs.append(tel.R_cw), ts.append(tel.t_cw), ok.append(tel.pose_ok)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_launches()
-    n = N_FRAMES - N_WARMUP
-    R = torch.stack(Rs).cpu().numpy()
-    tt = torch.stack(ts).cpu().numpy()
-    pose_ok = torch.stack(ok).cpu().numpy()
-    require(np.isfinite(R).all() and np.isfinite(tt).all(), "slice: non-finite pose")
-    gt = camera_positions(seq.R_lw[:N_FRAMES], seq.t_lw[:N_FRAMES])
-    ate = ate_rmse(camera_positions(R, tt), gt)
-    ok_share = float(pose_ok[1:].mean())
+    rec = {}
+    fps, tel = run_fps(SIZE, SIZE, N_FRAMES, N_WARMUP, device=dev, record=rec)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"[slice] {n} frames: {dt / n * 1e3:.2f} ms/frame, {n / dt:.2f} fps, peak "
+    n = N_FRAMES - N_WARMUP
+    ok_share, ate = arc_checks("slice", rec, N_FRAMES, N_WARMUP)
+    print(f"[slice] {n} frames: {1e3 / fps:.2f} ms/frame, {fps:.2f} fps, peak "
           f"{peak:.1f} MiB; pose_ok {ok_share:.3f}, ATE {ate:.5f} m, "
-          f"map {int(tel.map_size)}, launches {launches}")
-    require(launches == {"lk_fb": 2 * n, "orb": n},
-            f"slice: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
-    require(ok_share >= 0.9, f"slice: pose_ok on {ok_share:.3f} < 0.9 of frames")
-    require(ate < 0.05, f"slice: ATE {ate:.4f} m >= 0.05 m")
-    return launches
+          f"map {int(tel.map_size)}, launches {rec['launches']}")
+    return rec["launches"]
+
+
+def phase_bench(dev):
+    """``[bench]``: ``eval/bench.py``'s secondary run, ``run_fps(512, 384,
+    60)``, with the slice phase's checks; then both kernels against their
+    plain versions on the last frame's inputs, as the step passed them (its
+    two LK calls, temporal with init_pts and stereo, on the 384x512 to
+    48x64 pyramids; its ORB describe call), with the lk and orb phases'
+    tolerances. Returns (launches, max LK |dxy|, max ORB |dtheta|)."""
+    import torch
+
+    from zenslam_tpu_torch.eval.bench import BASELINE_S_PER_FRAME, run_fps
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.ops.image import gaussian_blur
+    from zenslam_tpu_torch.pipeline import step
+
+    t0 = time.perf_counter()
+    reset_launches()
+    rec, lk_calls, orb_calls = {}, [], []
+    with recorded_calls(step, "lk_ragged", lk_calls), \
+            recorded_calls(step, "orb_descriptors_kernel", orb_calls):
+        fps, tel = run_fps(BENCH_W, BENCH_H, BENCH_FRAMES, device=dev, record=rec)
+    ok_share, ate = arc_checks("bench", rec, BENCH_FRAMES, 8)
+    print(f"[bench] run_fps({BENCH_W}, {BENCH_H}, {BENCH_FRAMES}): {fps:.2f} fps (vs_baseline "
+          f"{fps * BASELINE_S_PER_FRAME:.3f}) on {card_line()}; pose_ok {ok_share:.3f}, ATE "
+          f"{ate:.5f} m, tracked {int(tel.n_tracked)}, map {int(tel.map_size)}, launches "
+          f"{rec['launches']}")
+    require(len(lk_calls) == 2 * BENCH_FRAMES and len(orb_calls) == BENCH_FRAMES,
+            f"bench: {len(lk_calls)} LK and {len(orb_calls)} ORB calls over {BENCH_FRAMES} frames")
+    last = lk_calls[-2:]
+    print(f"[bench] LK pyramid level shapes {[tuple(x.shape) for x in last[0][0][0]]}")
+    lk_err = 0.0
+    for args, kwargs in last:
+        kw = dict(kwargs)
+        init = kw.pop("init_pts", None)
+        name = "last frame temporal+init" if init is not None else "last frame stereo"
+        lk_err = max(lk_err, check_lk_cases("bench", {name: (args[0], args[1], init)},
+                                            args[2], args[3], kw))
+    require(sum(kw.get("init_pts") is not None for _, kw in last) == 1,
+            "bench: the last frame's LK calls are not one temporal (init_pts) and one stereo")
+    (img, xy, valid), kwargs = orb_calls[-1]
+    needs = kwargs.get("needs")
+    rows = valid if needs is None else valid & needs
+    sm = gaussian_blur(img, sigma=2.0, radius=4).to(torch.bfloat16)
+    print(f"[bench] ORB on the last frame's {tuple(sm.shape)} image, {xy.shape[0]} slots")
+    _, _, orb_err = check_orb("bench", sm, xy, rows)
+    print(f"[bench] phase {time.perf_counter() - t0:.1f} s")
+    return rec["launches"], lk_err, orb_err
 
 
 def reset_launches():
@@ -1084,10 +1151,9 @@ def reset_launches():
 
 
 def read_launches() -> dict:
-    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
-    from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
+    from zenslam_tpu_torch.eval.bench import kernel_launches
 
-    return {"lk_fb": lk_ragged.launches, "orb": orb_steered_brief.launches}
+    return kernel_launches()
 
 
 @contextlib.contextmanager
@@ -1162,59 +1228,42 @@ def backend_spans(system_module, records, spans: list):
         system_module._keyframe_backend = inner
 
 
-def phase_system(seq, dev):
+def phase_system(dev):
     import torch
 
+    from zenslam_tpu_torch.eval.bench import run_full_system_fps
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
-    from zenslam_tpu_torch.pipeline import SlamConfig
     from zenslam_tpu_torch.pipeline import system
-    from zenslam_tpu_torch.pipeline.system import (
-        BackendConfig, create_system, flush_pipeline, process_frame)
 
-    cfg, bcfg = SlamConfig(), BackendConfig(telemetry_lag=3)
-    # a throwaway system over the first frames: the back end's first uses
-    # (solver handles, allocator growth) land outside the measured system
-    warm = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
-    for t in range(16):
-        process_frame(warm, seq.left[t], seq.right[t])
-    flush_pipeline(warm)
-    torch.cuda.synchronize()
-    del warm
+    rec, snap, spans, box = {}, {}, [], {}
 
-    s = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
-    tels, infos = [], []
+    @contextlib.contextmanager
+    def timed():
+        """Around the timed frames: peak memory, keyframes and host reads
+        from here on, the implicit synchronises by back-end call."""
+        s = rec["system"]
+        torch.cuda.reset_peak_memory_stats()
+        snap.update(kf0=s.n_keyframes, reads0=Counter(s.host_reads))
+        with implicit_syncs() as records, backend_spans(system, records, spans):
+            box["records"] = records
+            yield
 
-    def keep(tel, info):
-        if tel is not None:
-            tels.append(tel)
-            infos.append(info)
-
-    for t in range(SYSTEM_WARMUP):
-        keep(*process_frame(s, seq.left[t], seq.right[t]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kf0, reads0 = s.n_keyframes, Counter(s.host_reads)
-    n_timed_infos = len(infos)
-    spans = []
     reset_launches()
-    t0 = time.perf_counter()
-    with implicit_syncs() as records, backend_spans(system, records, spans):
-        for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
-            keep(*process_frame(s, seq.left[t], seq.right[t]))
-        for tel, info in flush_pipeline(s):
-            keep(tel, info)
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    fps, _, _ = run_full_system_fps(SIZE, SIZE, SYSTEM_FRAMES, SYSTEM_WARMUP, device=dev,
+                                    record=rec, around=timed())
+    s, seq, tels, infos, records = (rec["system"], rec["seq"], rec["tels"], rec["infos"],
+                                    box["records"])
+    cfg, bcfg = s.cfg, s.bcfg
     in_backend = {i for a, b in spans for i in range(a, b)}
     back = sync_sites([r for i, r in enumerate(records) if i in in_backend])
     front = sync_sites([r for i, r in enumerate(records) if i not in in_backend])
-    launches = read_launches()
+    launches = rec["launches"]
     n = SYSTEM_FRAMES - SYSTEM_WARMUP
-    timed = infos[n_timed_infos:]
-    n_kf = s.n_keyframes - kf0
-    backend = [i["backend_ms"] for i in timed if i["backend_ms"] > 0]
+    timed_rows = infos[rec["n_warmup_rows"]:]
+    n_kf = s.n_keyframes - snap["kf0"]
+    backend = [i["backend_ms"] for i in timed_rows if i["backend_ms"] > 0]
     phases = {}
-    for i in timed:
+    for i in timed_rows:
         for k, v in i.get("phases", {}).items():
             phases.setdefault(k, []).append(v)
     R = np.stack([t.R_cw for t in tels])
@@ -1227,8 +1276,9 @@ def phase_system(seq, dev):
     runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     reads = Counter(s.host_reads)
-    reads.subtract(reads0)
-    print(f"[system] {n} frames: {dt / n * 1e3:.2f} ms/frame, {n / dt:.2f} fps, peak "
+    reads.subtract(snap["reads0"])
+    print(f"[system] {n} frames (eval/bench.py:run_full_system_fps): {1e3 / fps:.2f} "
+          f"ms/frame, {fps:.2f} fps, peak "
           f"{peak:.1f} MiB; backend_ms median {float(np.median(backend)):.2f} over "
           f"{len(backend)} keyframes (min {min(backend):.2f}, max {max(backend):.2f})")
     print("[system] phase medians (host ms per keyframe): " + ", ".join(
@@ -1269,51 +1319,43 @@ def phase_system(seq, dev):
 
 
 def timed_system_run(s, seq) -> dict:
-    """The system phase's frames through the system ``s``: SYSTEM_WARMUP
-    frames untimed, then the launch counters at 0 and the rest with
-    ``flush_pipeline`` timed up to a synchronise, the implicit synchronises
-    recorded. Returns the launches, seconds, frame poses ``R``, ``t``,
-    keyframe flags, pose_ok share after frame 0, ATE, BA runs ([rmse
-    before, after, dropped observations]), the timed keyframes'
-    ``backend_ms`` and ``ba_dispatch`` host ms, and the records."""
+    """The system phase's frames through the system ``s`` by
+    ``eval/bench.py:system_pass`` (SYSTEM_WARMUP frames untimed, the rest
+    with ``flush_pipeline`` timed up to a synchronise), the implicit
+    synchronises of the timed frames recorded. Returns the launches, seconds,
+    frame poses ``R``, ``t``, keyframe flags, pose_ok share after frame 0,
+    ATE, BA runs ([rmse before, after, dropped observations]), the timed
+    keyframes' ``backend_ms`` and ``ba_dispatch`` host ms, and the records."""
     import torch
 
+    from zenslam_tpu_torch.eval.bench import system_pass
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
-    from zenslam_tpu_torch.pipeline.system import flush_pipeline, process_frame
 
-    tels, infos = [], []
+    box = {}
 
-    def keep(tel, info):
-        if tel is not None:
-            tels.append(tel)
-            infos.append(info)
+    @contextlib.contextmanager
+    def timed():
+        torch.cuda.reset_peak_memory_stats()
+        with implicit_syncs() as records:
+            box["records"] = records
+            yield
 
-    for t in range(SYSTEM_WARMUP):
-        keep(*process_frame(s, seq.left[t], seq.right[t]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    n_timed_infos = len(infos)
-    reset_launches()
-    t0 = time.perf_counter()
-    with implicit_syncs() as records:
-        for t in range(SYSTEM_WARMUP, SYSTEM_FRAMES):
-            keep(*process_frame(s, seq.left[t], seq.right[t]))
-        for tel, info in flush_pipeline(s):
-            keep(tel, info)
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    timed = infos[n_timed_infos:]
+    rec = {}
+    dt, backend = system_pass(s, seq.left, seq.right, SYSTEM_WARMUP, record=rec,
+                              around=timed())
+    tels, infos = rec["tels"], rec["infos"]
+    timed_rows = infos[rec["n_warmup_rows"]:]
     R = np.stack([t.R_cw for t in tels])
     tt = np.stack([t.t_cw for t in tels])
-    return {"launches": read_launches(), "dt": dt, "R": R, "t": tt,
+    return {"launches": rec["launches"], "dt": dt, "R": R, "t": tt,
             "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
             "pose_ok": float(np.array([float(t.pose_ok) for t in tels])[1:].mean()),
             "ate": ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw)),
             "runs": [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None],
-            "backend_ms": [i["backend_ms"] for i in timed if i["backend_ms"] > 0],
-            "ba_dispatch": [i["phases"]["ba_dispatch"] for i in timed
+            "backend_ms": backend,
+            "ba_dispatch": [i["phases"]["ba_dispatch"] for i in timed_rows
                             if "ba_dispatch" in i.get("phases", {})],
-            "records": records}
+            "records": box["records"]}
 
 
 def window_syncs(records, path_part: str) -> Counter:
@@ -1369,13 +1411,13 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
           + "; ".join(f"{a:.4f}/{b:.4f}/{int(c)}" for a, b, c in runs))
     a, kw = windows[-1]
     cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **dict(kw, solver=k))
-                             for k in ("dense", "cg")}, pairs=5)
+                             for k in ("dense", "cg")})
     print(f"[system_cg] one windowed BA (the last keyframe's inputs, {int(s.kf_db.valid.sum())} "
           f"keyframes in a {CG_WINDOW}-slot window, {kw['iterations']} LM steps) on "
           f"{card_line()}: " + "; ".join(
               f"{k} {c[0]} device kernels and copies, device busy {c[1]:.3f} ms, host "
               f"{c[2]:.2f} ms" for k, c in cost.items())
-          + " (torch.profiler; host: medians of 5 alternating rounds)")
+          + f" (torch.profiler; host: medians of {COST_ROUNDS} alternating rounds)")
     for k, ops in by_op.items():
         print(f"[system_cg] {k}: device ms by operator (top 5): "
               + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
@@ -1536,16 +1578,25 @@ def kf_ate(kf_db, seq) -> float:
     return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, -1))))
 
 
+@functools.lru_cache(maxsize=None)
+def loop_orbit(dev):
+    """``tests/test_loop_closure.py``'s 64-frame 320x240 orbit (seed 21,
+    pixel noise 0.01, radius 1.0, host render), rendered once for the loop
+    phase and the dist phase's (c)."""
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+
+    return make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
+                         motion="orbit", pixel_noise=0.01, orbit_radius=1.0, device=dev)
+
+
 def phase_loop(dev):
     import torch
 
-    from zenslam_tpu_torch.io.synthetic import make_sequence
     from zenslam_tpu_torch.pipeline import SlamConfig
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, run_system
 
     t0 = time.perf_counter()
-    seq = make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
-                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0, device=dev)
+    seq = loop_orbit(dev)
     cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
                      kf_min_translation=0.05)
     configs = {
@@ -1937,7 +1988,7 @@ def systems_identical(s, s2) -> tuple:
     return same, la
 
 
-def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
+def vio_branch_cost(opts_path, k: int, dev, pairs: int = COST_ROUNDS) -> dict:
     """What the VIO branch adds to one ``slam_step``: a system of the options
     file runs frames 0..k-1 of its folder as the app does (rectified, with
     IMU); then frame k, rectified, is stepped from that state with its IMU
@@ -1982,7 +2033,7 @@ def vio_branch_cost(opts_path, k: int, dev, pairs: int = 10) -> dict:
     return cost
 
 
-def step_cost(steps: dict, pairs: int = 10) -> tuple:
+def step_cost(steps: dict, pairs: int = COST_ROUNDS) -> tuple:
     """Each of two step functions {name: fn} measured alike: device kernels
     and copies and their busy ms (``torch.profiler``, one call each after a
     warm call), device ms by operator, and host ms (perf_counter around the
@@ -2092,7 +2143,7 @@ def phase_fulldress(dev):
               f"without: device "
               f"kernels and copies {k_imu} / {k_plain} (torch.profiler; the VIO branch adds "
               f"{k_imu - k_plain}), device busy {busy_imu:.3f} / {busy_plain:.3f} ms, host "
-              f"{ms_imu:.2f} / {ms_plain:.2f} ms (median of 10 alternating pairs; the VIO "
+              f"{ms_imu:.2f} / {ms_plain:.2f} ms (median of {COST_ROUNDS} alternating pairs; the VIO "
               f"branch {ms_imu - ms_plain:.2f} ms)")
         for run, bound in (("fulldress", 100.0), ("fulldress_lines", 150.0)):
             ate = runs[run][1].get("ate_mm", float("inf"))
@@ -2234,7 +2285,7 @@ def phase_lines(dev):
     print(f"[lines] one slam_step on frame {k} from the state before it, keylines on / off: "
           f"device kernels and copies {k_on} / {k_off} (torch.profiler; the keyline branch "
           f"adds {k_on - k_off}), device busy {busy_on:.3f} / {busy_off:.3f} ms, host "
-          f"{ms_on:.2f} / {ms_off:.2f} ms (median of 10 alternating pairs; the branch "
+          f"{ms_on:.2f} / {ms_off:.2f} ms (median of {COST_ROUNDS} alternating pairs; the branch "
           f"{ms_on - ms_off:.2f} ms)")
     require(launches == {"lk_fb": 4 * n, "orb": n},
             f"lines: launches {launches} != 4 LK + 1 ORB per frame over {n} frames")
@@ -2363,7 +2414,9 @@ def phase_lines_app(dev):
 def phase_kidnap(dev):
     """tests/test_place_recognition.py::TestRelocalizationAfterKidnap's run
     for the port alone: the 112-frame 448x336 orbit (1.75 turns, seed 33,
-    pixel noise 0.01; rendered on the card), frames 80-95 skipped, loops on
+    pixel noise 0.01; rendered on the card), frames 80-95 skipped and the
+    run ended at KIDNAP_END (the tail revisit error on its last 3 frames
+    against the same views 64 frames before), loops on
     with a frame gap that never fires, relocalisation off and on; once on
     the main (kernel) path and once on the f32 path the reference's test
     runs (``use_pallas_lk=False``: f32 pyramid, the gather LK, no kernel).
@@ -2379,13 +2432,13 @@ def phase_kidnap(dev):
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, process_frame
 
     t0 = time.perf_counter()
-    n, jump = 112, 80
+    n, jump, end = 112, 80, KIDNAP_END
     seq = make_sequence(np.random.default_rng(33), n_frames=n, width=448, height=336,
                         motion="orbit", pixel_noise=0.01, orbit_radius=1.0,
                         orbit_revolutions=1.75, device_render=True, device=dev)
     cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
                      kf_min_translation=0.05)
-    order = list(range(0, jump)) + list(range(96, n))
+    order = list(range(0, jump)) + list(range(96, end))
     launches = Counter()
     for path, pcfg in (("kernel", cfg), ("f32", cfg._replace(use_pallas_lk=False))):
         out = {}
@@ -2405,7 +2458,7 @@ def phase_kidnap(dev):
             if path == "kernel":
                 launches.update(read_launches())
             err = float(np.mean([np.linalg.norm(centers[f] - centers[f - 64])
-                                 for f in range(n - 3, n)]))
+                                 for f in range(end - 3, end)]))
             kf_frames = s.kf_db.frame_idx.cpu().numpy()
             events = [dict(d, kf_frame=int(kf_frames[d["slot"]])) for d in s.reloc_debug]
             out[reloc] = (s, err, events)
@@ -2629,7 +2682,7 @@ def phase_families(seq, dev):
         print(f"[families] {name}: one slam_step on frame {k} from its run's state before it: "
               f"device kernels and copies {kn} (default {kd}, torch.profiler), device busy "
               f"{busy:.3f} ms (default {busy_d:.3f}), host {ms:.2f} ms (default {ms_d:.2f}; "
-              f"medians of 10 alternating rounds); device ms it adds by operator (top 5): "
+              f"medians of {COST_ROUNDS} alternating rounds); device ms it adds by operator (top 5): "
               + ", ".join(f"{op[:40]} {v:.3f}" for op, v in added.most_common(5)))
     paths.update(family_orbit(dev))
     print(f"[families] phase {time.perf_counter() - t0:.1f} s")
@@ -2861,11 +2914,9 @@ def dist_loop(dev) -> dict:
     printed. The kernel path's 8-shard run parts from the dense one by
     meters: ``window_witness`` holds the 8-shard solver to the dense solver
     on the same rows where they first part (see PERF.md)."""
-    from zenslam_tpu_torch.io.synthetic import make_sequence
     from zenslam_tpu_torch.pipeline import SlamConfig
 
-    seq = make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
-                        motion="orbit", pixel_noise=0.01, orbit_radius=1.0, device=dev)
+    seq = loop_orbit(dev)
     cfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
                      kf_min_translation=0.05)
     f32 = cfg._replace(use_pallas_lk=False)
@@ -2976,19 +3027,18 @@ def window_witness(dense_windows: list, dist_windows: list, dev) -> None:
 
 def dist_offline(dev) -> None:
     """(d): the dry run's stage 2, the 10-frame 192x144 strafe (seed 4),
-    through 1 and 2 worker processes on the card and the in-process
-    chunker, on the kernel path and on the f32 path (the one the dry run
-    ran): the 2-worker stitch within 5e-3 of the in-process chunker on
-    both. The dry run's accuracy check, the truth's sign within 0.15 m, is
+    through 2 worker processes on the card and the in-process chunker, on
+    the kernel path and on the f32 path (the one the dry run ran): the
+    2-worker stitch within 5e-3 of the in-process chunker on both. The dry run's accuracy check, the truth's sign within 0.15 m, is
     held at STRAFE_BAR on the displacement the images fix. fx = 380 on a
     192-pixel sensor is a 28 degree view of a wall STRAFE_WALL_Z ahead, so
     a strafe error e and a yaw error -e / STRAFE_WALL_Z move the image
     alike; each frame's x error is -5.9 m x its yaw error in both packages
     on the CPU, and the reference's own stitch misses the raw 0.15 m bar on
     5 of 8 seeds (scripts/torch_dist_probe.py strafe, PERF.md). So dx +
-    STRAFE_WALL_Z x the yaw change is held for the stitch and the 1-worker
-    (serial) run; the raw dx and the dry run's verdict on it are printed.
-    Wall times reported: the workers share the card."""
+    STRAFE_WALL_Z x the yaw change is held for the stitch and the serial
+    run (one chunk, in process); the raw dx and the dry run's verdict on it
+    are printed. The workers' wall time is reported: they share the card."""
     import tempfile
 
     from zenslam_tpu_torch.io.synthetic import make_sequence
@@ -3009,25 +3059,20 @@ def dist_offline(dev) -> None:
     gt_dx, gt_dyaw = dx_yaw(seq.R_lw, seq.t_lw)
     gt_fixed = gt_dx + STRAFE_WALL_Z * gt_dyaw
     for path, c in (("kernel", cfg), ("f32", cfg._replace(use_pallas_lk=False))):
-        wall, outs = {}, {}
         with tempfile.TemporaryDirectory() as wd:
-            for n in (1, 2):
-                t0 = time.perf_counter()
-                outs[n] = run_offline_multiprocess(c, seq.rig, seq.left, seq.right, n_workers=n,
-                                                   overlap=3, workdir=f"{wd}/w{n}", device=dev,
-                                                   pin_cpus=False)
-                wall[n] = time.perf_counter() - t0
-        ref = run_offline_chunks(c, seq.rig, seq.left, seq.right, n_chunks=2, overlap=3,
-                                 device=dev)
-        out = outs[2]
+            t0 = time.perf_counter()
+            out = run_offline_multiprocess(c, seq.rig, seq.left, seq.right, n_workers=2,
+                                           overlap=3, workdir=wd, device=dev, pin_cpus=False)
+            wall = time.perf_counter() - t0
+        ref, serial = (run_offline_chunks(c, seq.rig, seq.left, seq.right, n_chunks=n,
+                                          overlap=3, device=dev) for n in (2, 1))
         d = float(np.abs(out["t_cw"] - ref["t_cw"]).max())
         print(f"[dist_offline] {path} path, 2 worker processes on the card: bounds "
               f"{out['bounds']}, against the in-process chunker max|dt| {d:.3e} m; wall time "
-              f"1 worker {wall[1]:.2f} s, 2 workers {wall[2]:.2f} s (process start, CUDA "
-              "context and 10 frames; reported, not a claim)")
+              f"{wall:.2f} s (process start, CUDA context and 10 frames; reported, not a claim)")
         require(np.isfinite(out["t_cw"]).all() and d < 5e-3,
                 f"dist_offline {path}: workers part from the in-process chunker by {d:.3e}")
-        for name, o in (("2-worker stitch", out), ("1 worker", outs[1])):
+        for name, o in (("2-worker stitch", out), ("serial, 1 chunk in process", serial)):
             dx, dyaw = dx_yaw(o["R_cw"], o["t_cw"])
             fixed = dx + STRAFE_WALL_Z * dyaw
             raw_ok = np.sign(dx) == np.sign(gt_dx) and abs(dx - gt_dx) < 0.15
@@ -3061,12 +3106,12 @@ def phase_dist(seq, dev, dense: dict) -> dict:
     for n in (1, 8):
         windows[f"dist{n}"] = dict(kw, mesh=system._live_ba_mesh(n, dev))
     cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **v)
-                             for k, v in windows.items()}, pairs=5)
+                             for k, v in windows.items()})
     print(f"[dist] one windowed BA (the last keyframe's inputs, {kw['iterations']} LM steps) on "
           f"{card_line()}: " + "; ".join(
               f"{k} {c[0]} device kernels and copies, device busy {c[1]:.3f} ms, host "
               f"{c[2]:.2f} ms" for k, c in cost.items())
-          + " (torch.profiler; host: medians of 5 alternating rounds)")
+          + f" (torch.profiler; host: medians of {COST_ROUNDS} alternating rounds)")
     for k, ops in by_op.items():
         print(f"[dist] {k}: device ms by operator (top 5): "
               + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
@@ -3074,6 +3119,38 @@ def phase_dist(seq, dev, dense: dict) -> dict:
     dist_offline(dev)
     print(f"[dist] phase {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+def phase_scaling(dev) -> dict:
+    """``[scaling]``: ``eval/scaling.py``'s problem (K=32, M=16384,
+    O=131072) through ``dist_bundle_adjust`` at 1 and 8 local shards of the
+    one-rank NCCL group, one untimed and one timed solve each: the cost falls
+    at both, and the 8-shard R and t are within 5e-3 of the 1-shard solve
+    (the dry run's bar for the solver alone). Returns the launches (none:
+    no kernel is on this path)."""
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.eval.scaling import ITERATIONS, make_problem, time_solve
+    from zenslam_tpu_torch.parallel import make_ba_mesh, shard_ba_problem
+
+    t0 = time.perf_counter()
+    reset_launches()
+    p = make_problem(device=dev)
+    out = {}
+    for n in (1, 8):
+        ms, r = time_solve(shard_ba_problem(p, n), make_ba_mesh(n, device=dev), repeats=1)
+        cb, ca = float(r["cost_before"]), float(r["cost_after"])
+        print(f"[scaling] K=32 M={p.xyz.shape[0]} O={p.obs_kf.shape[0]}, {n} shard(s) on one "
+              f"card: {ms:.2f} ms/iteration ({ITERATIONS} LM steps, one timed solve) on "
+              f"{card_line()}; cost {cb:.1f} -> {ca:.4f}")
+        require(np.isfinite(ca) and ca < cb, f"scaling: {n} shards cost {cb:.4f} -> {ca:.4f}")
+        out[n] = r
+    dR = float((out[8]["R"] - out[1]["R"]).abs().max())
+    dt = float((out[8]["t"] - out[1]["t"]).abs().max())
+    launches = read_launches()
+    print(f"[scaling] 8 shards vs 1: max|dR| {dR:.2e}, max|dt| {dt:.2e} (bar 5e-3); launches "
+          f"{launches}; phase {time.perf_counter() - t0:.1f} s")
+    require(dR < 5e-3 and dt < 5e-3, f"scaling: 8 shards part from 1 by dR {dR:.2e} dt {dt:.2e}")
+    return launches
 
 
 def main() -> int:
@@ -3101,8 +3178,9 @@ def main() -> int:
         paths = {"api": phase_api(seq, xy, valid, dev)}
         rig_paths, rigs_lk_err, rigs_orb_err = phase_rigs(dev)
         paths.update(rig_paths)
-        paths["slice"] = phase_slice(seq, dev)
-        paths["system"], dense = phase_system(seq, dev)
+        paths["slice"] = phase_slice(dev)
+        paths["bench"], bench_lk_err, bench_orb_err = phase_bench(dev)
+        paths["system"], dense = phase_system(dev)
         paths["system_cg"] = phase_system_cg(seq, dev, dense)
         paths["loop"] = phase_loop(dev)
         paths["kidnap"] = phase_kidnap(dev)
@@ -3113,8 +3191,10 @@ def main() -> int:
         paths.update(lines_paths)
         paths.update(phase_families(seq, dev))
         paths.update(phase_dist(seq, dev, dense))
-        lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err, rigs_lk_err)
-        orb["max_abs_err"] = max(orb["max_abs_err"], rigs_orb_err)
+        paths["scaling"] = phase_scaling(dev)
+        lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err, rigs_lk_err,
+                                bench_lk_err)
+        orb["max_abs_err"] = max(orb["max_abs_err"], rigs_orb_err, bench_orb_err)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -263,6 +263,19 @@ def test_slice_runs_on_kernels(dev):
     assert all(oks[1:])
 
 
+@pytest.mark.cuda
+def test_bench_run_fps_on_kernels(dev):
+    """``eval/bench.py:run_fps`` on the card (its default device): 2 LK and
+    1 ORB launches per timed frame, finite fps, pose_ok after frame 0."""
+    from zenslam_tpu_torch.eval.bench import run_fps
+
+    rec = {}
+    fps, tel = run_fps(512, 384, 12, n_warmup=4, record=rec)
+    assert rec["launches"] == {"lk_fb": 16, "orb": 8}
+    assert np.isfinite(fps) and fps > 0
+    assert all(bool(t.pose_ok) for t in rec["tels"][1:])
+
+
 def _rot(rng, sigma):
     return so3_exp(torch.from_numpy(rng.normal(0, sigma, 3).astype(np.float32)))
 

@@ -17,6 +17,7 @@ generator state renders the same images in both packages.
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -303,8 +304,10 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
     right noise; with any effect on, the frames are clipped to [0, 1]. With
     device_render the frames are rendered on ``device`` and returned as (T,
     H, W) tensors there, the effects applied there in the dtypes numpy gives
-    the host render; the host renderer returns numpy arrays. The rig lives
-    on ``device``."""
+    the host render; the host renderer returns numpy arrays, its views
+    rendered by torch's intra-op thread count of threads at once (the same
+    frames: the render draws nothing from ``rng``). The rig lives on
+    ``device``."""
     if motion not in ("strafe", "forward", "arc", "orbit"):
         raise NotImplementedError(f"motion {motion!r} is not ported (strafe, forward, arc, orbit)")
     world = (make_room_world(rng) if motion == "orbit"
@@ -378,17 +381,26 @@ def make_sequence(rng: np.random.Generator, n_frames: int = 20, width: int = 512
         return li.astype(np.float32), ri.astype(np.float32)
 
     timestamps = np.arange(n_frames, dtype=np.float64) * dt
-    lefts, rights, Rs, ts = [], [], [], []
-    for i in range(n_frames):
-        R_cw, t_cw = pose_fn(timestamps[i])
+    poses = [pose_fn(timestamps[i]) for i in range(n_frames)]
+
+    def views(i):
+        R_cw, t_cw = poses[i]
         R_rcw = R_rl @ R_cw
         t_rcw = R_rl @ t_cw + t_rl
         if device_render:
-            li = render_view_device(world, rig.left, R_cw, t_cw, height, width, dev)
-            ri = render_view_device(world, rig.right, R_rcw, t_rcw, height, width, dev)
-        else:  # the host render is float64
-            li = render_view(world, rig.left, R_cw, t_cw, height, width)
-            ri = render_view(world, rig.right, R_rcw, t_rcw, height, width)
+            return (render_view_device(world, rig.left, R_cw, t_cw, height, width, dev),
+                    render_view_device(world, rig.right, R_rcw, t_rcw, height, width, dev))
+        # the host render is float64
+        return (render_view(world, rig.left, R_cw, t_cw, height, width),
+                render_view(world, rig.right, R_rcw, t_rcw, height, width))
+
+    if device_render or torch.get_num_threads() <= 1:
+        rendered = map(views, range(n_frames))
+    else:
+        with ThreadPoolExecutor(torch.get_num_threads()) as pool:
+            rendered = list(pool.map(views, range(n_frames)))
+    lefts, rights, Rs, ts = [], [], [], []
+    for (R_cw, t_cw), (li, ri) in zip(poses, rendered):
         li, ri = sensor(li, ri)
         lefts.append(li)
         rights.append(ri)
