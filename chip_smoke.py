@@ -34,7 +34,8 @@ Phases (each one fatal on failure):
    >= 96 px from the border, ``make_slam_step`` over API_FRAMES frames
    bit-identical to ``slam_step`` with 2 LK + 1 ORB launches a frame; the
    implicit synchronises of the new functions' second calls by line;
-4c. rigs: ``slam_step`` at ``scripts/trace_check.py``'s four rigs (RIGS:
+4c. rigs: the captured step (``make_slam_step``) at
+   ``scripts/trace_check.py``'s four rigs (RIGS:
    96x128 default, 128x160 with CLAHE and pose fusion, 96x128 with
    keylines, and the left camera's width/height metadata 0), RIG_FRAMES
    frames of the arc rendered on the card at each size with that script's
@@ -50,11 +51,13 @@ Phases (each one fatal on failure):
    LK and 1 ORB launches per frame, pose_ok on >= 90% of frames, ATE <
    0.05 m; prints ms/frame, fps, peak memory;
 5a. bench: the benchmark's secondary run, ``run_fps(512, 384, 60)``, with
-   the slice phase's checks; prints fps beside the card's name; then the LK
-   kernel (the last frame's temporal call with init_pts and its stereo
-   call, on the 384x512 to 48x64 pyramids, with the step's arguments) and
-   the ORB kernel (the last frame's describe call) against their plain
-   versions with the lk and orb phases' tolerances;
+   the slice phase's checks; prints fps beside the card's name; then the last
+   frame again, eagerly from the state before it (a replay runs no Python
+   hook), its telemetry bit-identical to the graphed frame's, and the LK
+   kernel (that frame's temporal call with init_pts and its stereo call, on
+   the 384x512 to 48x64 pyramids, with the step's arguments) and the ORB
+   kernel (its describe call) against their plain versions with the lk and
+   orb phases' tolerances;
 6. system: the full keyframe system through ``eval/bench.py``'s
    ``run_full_system_fps``: ``create_system`` with the default SlamConfig
    and ``BackendConfig(telemetry_lag=3)``, ``process_frame`` over the
@@ -94,6 +97,22 @@ Phases (each one fatal on failure):
    ``run_system`` twice, loop closure off and on with that test's configs:
    at least one loop closes, and the keyframe ATE with loops is below the
    one without; 2 LK + 1 ORB launches per frame in each run;
+7a. graphs: the captured programs (``pipeline/graphs.py``: CUDA graphs,
+   the default of the step, the system, the app and the benchmark, which
+   the phases above and below run) held against the same code under
+   ``graphs.eager()`` in one process: (a) the slice's 40 frames through
+   ``make_slam_step`` eager, graphed, graphed, eager: every frame's state
+   and telemetry bit-identical, host ms/frame, device busy ms, idle share,
+   device kernels and graph launches a frame (``torch.profiler`` over
+   PROFILE_FRAMES frames), the capture's ms, peak memory, 2 LK + 1 ORB
+   launches a frame counted through the replays, and the device time of
+   the state's copy into its buffers; (b) the system phase's 80 frames
+   through ``process_frame`` eager then graphed: the same keyframes, BA
+   runs, loop verdicts, poses and keyframe database, with ms/frame and the
+   median ``backend_ms`` of each; (c) one CG window (``ba_window`` 24) on
+   (b)'s last inputs, with host ms; (d) the loop orbit with loops on: the
+   same loops. Where two eager runs part, graphed is held within their
+   spread and the outputs are named;
 8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
    448x336 orbit, frames 80-95 skipped, run up to frame KIDNAP_END; the
    test runs on to 111) for the port alone, relocalisation
@@ -147,7 +166,9 @@ Phases (each one fatal on failure):
    vignette 0.35) with its hard slam flags (CLAHE, pose fusion, keylines)
    and the IMU: ATE < 150 mm (the script's ``--hard`` bound), 4 LK + 1 ORB
    launches per frame;
-11. lines: (a) ``slam_step`` with ``SlamConfig(use_keylines=True)`` on a
+11. lines: (a) the step (eager ``slam_step`` over the warm-up frames but
+   the last, which captures it; the captured step after) with
+   ``SlamConfig(use_keylines=True)`` on a
    1024x1024 strafe of the corridor with stripes rendered on the card,
    LINES_FRAMES frames (LINES_WARMUP warm-up, the implicit synchronises of
    which are reported by line, none allowed in ``ops/lines.py`` or
@@ -171,7 +192,7 @@ Phases (each one fatal on failure):
    max(1.5 x the base's, 20 mm), >= 8 keylines a frame with CLAHE off; and
    a checkpoint of the CLAHE-off keylines system after frame APP_CKPT_FRAME
    (its line tables populated) loaded back bit-identical;
-12. families: (a) ``slam_step`` on the slice phase's first FAMILY_FRAMES
+12. families: (a) the step (warm-up as in lines) on the slice phase's first FAMILY_FRAMES
    frames (the same 8
    warm-up frames, the implicit synchronises of which are reported by
    line, then the measured frames with the counters at 0) for each run of
@@ -237,6 +258,13 @@ Phases (each one fatal on failure):
    system phase's count, ``launches_by_path`` every path's), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
+
+The step, the windowed BA (dense, CG) and the loop and reloc gates run as
+captured programs wherever ``process_frame``, ``make_slam_step``,
+``eval/bench.py`` and the app run them; what calls ``slam_step`` itself
+(fma, the lines and families warm-up frames whose implicit synchronises
+are read, the re-run frames whose kernel inputs are recorded, the branch
+costs) runs the eager function.
 
 Each kernel is timed two ways, each as the median and min-max of
 ``REPEATS`` repeats per turn: ``ms`` is the time per wrapper call (CUDA
@@ -324,6 +352,7 @@ PEAK_F32 = 67e12
 REPEATS = 5          # timed repeats per turn
 DEVICE_CALLS = 50    # wrapper calls captured in one CUDA graph
 COST_ROUNDS = 5      # step_cost: alternating rounds of host timing
+PROFILE_FRAMES = 3   # graphs phase: frames under torch.profiler, eager and graphed
 
 
 class PhaseError(RuntimeError):
@@ -989,7 +1018,8 @@ def trace_imu(dev, samples: int = 8) -> tuple:
 
 
 def phase_rigs(dev) -> tuple:
-    """``[rigs]``: ``slam_step`` at ``scripts/trace_check.py``'s off-default
+    """``[rigs]``: the captured step (``make_slam_step``, as the script runs
+    the jitted ``slam_step``) at ``scripts/trace_check.py``'s off-default
     rigs (RIGS), each on RIG_FRAMES frames of the arc rendered on the card at
     its size, with that script's IMU slice: finite poses and both kernels
     launched; then both kernels against their plain versions on the default
@@ -1002,7 +1032,7 @@ def phase_rigs(dev) -> tuple:
     from zenslam_tpu_torch.ops.fast import detect_grid_keypoints
     from zenslam_tpu_torch.ops.image import gaussian_blur
     from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
-    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step
 
     t0 = time.perf_counter()
     paths, small = {}, None
@@ -1014,11 +1044,11 @@ def phase_rigs(dev) -> tuple:
             rig = rig._replace(left=rig.left._replace(width=0, height=0))
         cfg = SlamConfig(**fields)
         state = init_state(cfg, (h, w), seed=0, device=dev)
+        step = make_slam_step(cfg, rig)
         poses, ok = [], []
         reset_launches()
         for t in range(RIG_FRAMES):
-            state, tel = slam_step(cfg, rig, state, seq.left[t], seq.right[t],
-                                   imu=trace_imu(dev))
+            state, tel = step(state, seq.left[t], seq.right[t], imu=trace_imu(dev))
             poses.append(torch.cat([tel.R_cw.reshape(-1), tel.t_cw]))
             ok.append(tel.pose_ok)
         torch.cuda.synchronize()
@@ -1096,31 +1126,59 @@ def phase_slice(dev):
 
 def phase_bench(dev):
     """``[bench]``: ``eval/bench.py``'s secondary run, ``run_fps(512, 384,
-    60)``, with the slice phase's checks; then both kernels against their
-    plain versions on the last frame's inputs, as the step passed them (its
-    two LK calls, temporal with init_pts and stereo, on the 384x512 to
-    48x64 pyramids; its ORB describe call), with the lk and orb phases'
-    tolerances. Returns (launches, max LK |dxy|, max ORB |dtheta|)."""
+    60)`` (the captured step), with the slice phase's checks; then both
+    kernels against their plain versions on the last frame's inputs, as the
+    step passed them (its two LK calls, temporal with init_pts and stereo,
+    on the 384x512 to 48x64 pyramids; its ORB describe call), with the lk and
+    orb phases' tolerances. A replay runs no Python, so the last frame runs
+    again eagerly (``graphs.eager()``) from the state before it, its kernel
+    calls recorded, and its telemetry must equal the graphed frame's bit for
+    bit. The graphed last frame is then replayed from the same state under
+    ``torch.profiler``: its trace must hold 2 LK and 1 ORB kernels, as many
+    as the counters added. Returns (launches, max LK |dxy|, max ORB
+    |dtheta|)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from zenslam_tpu_torch.eval.bench import BASELINE_S_PER_FRAME, run_fps
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.ops.image import gaussian_blur
-    from zenslam_tpu_torch.pipeline import step
+    from zenslam_tpu_torch.pipeline import SlamConfig, slam_step, step
+    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.pipeline.state import pack_telemetry
 
     t0 = time.perf_counter()
     reset_launches()
     rec, lk_calls, orb_calls = {}, [], []
-    with recorded_calls(step, "lk_ragged", lk_calls), \
-            recorded_calls(step, "orb_descriptors_kernel", orb_calls):
-        fps, tel = run_fps(BENCH_W, BENCH_H, BENCH_FRAMES, device=dev, record=rec)
+    fps, tel = run_fps(BENCH_W, BENCH_H, BENCH_FRAMES, device=dev, record=rec)
     ok_share, ate = arc_checks("bench", rec, BENCH_FRAMES, 8)
     print(f"[bench] run_fps({BENCH_W}, {BENCH_H}, {BENCH_FRAMES}): {fps:.2f} fps (vs_baseline "
           f"{fps * BASELINE_S_PER_FRAME:.3f}) on {card_line()}; pose_ok {ok_share:.3f}, ATE "
           f"{ate:.5f} m, tracked {int(tel.n_tracked)}, map {int(tel.map_size)}, launches "
           f"{rec['launches']}")
-    require(len(lk_calls) == 2 * BENCH_FRAMES and len(orb_calls) == BENCH_FRAMES,
-            f"bench: {len(lk_calls)} LK and {len(orb_calls)} ORB calls over {BENCH_FRAMES} frames")
+    seq, t = rec["seq"], BENCH_FRAMES - 1
+    with eager(), recorded_calls(step, "lk_ragged", lk_calls), \
+            recorded_calls(step, "orb_descriptors_kernel", orb_calls):
+        _, tel_e = slam_step(SlamConfig(), seq.rig, rec["before_last"], seq.left[t], seq.right[t])
+    same = torch.equal(pack_telemetry(tel_e), rec["packed"][-1])
+    print(f"[bench] the last frame again, eagerly from the state before it: telemetry "
+          f"{'bit-identical to' if same else 'DIFFERENT from'} the graphed frame's; "
+          f"{len(lk_calls)} LK and {len(orb_calls)} ORB calls recorded")
+    require(same and len(lk_calls) == 2 and len(orb_calls) == 1,
+            f"bench: the eager last frame: telemetry identical {same}, {len(lk_calls)} LK and "
+            f"{len(orb_calls)} ORB calls")
+    torch.cuda.synchronize()
+    before = read_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, packed = rec["step"].run(rec["before_last"], seq.left[t], seq.right[t])
+        torch.cuda.synchronize()
+    seen = counted_on_device("bench: the last frame replayed", prof, before)
+    same = torch.equal(packed, rec["packed"][-1])
+    print(f"[bench] the last frame replayed from the state before it under torch.profiler: "
+          f"hand kernels in the trace {seen} (= the counters' increase), telemetry "
+          f"{'bit-identical to' if same else 'DIFFERENT from'} the run's")
+    require(same and seen == {"lk_fb": 2, "orb": 1},
+            f"bench: the replayed last frame: kernels {seen}, telemetry identical {same}")
     last = lk_calls[-2:]
     print(f"[bench] LK pyramid level shapes {[tuple(x.shape) for x in last[0][0][0]]}")
     lk_err = 0.0
@@ -1363,7 +1421,7 @@ def window_syncs(records, path_part: str) -> Counter:
     ``path_part``, or on the lines of ``system._windowed_ba``, by line."""
     from zenslam_tpu_torch.pipeline import system
 
-    src, first = inspect.getsourcelines(system._windowed_ba)
+    src, first = inspect.getsourcelines(system._windowed_ba_body)
     here = Path(system.__file__).resolve()
     return Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in records if is_sync(w)
@@ -1378,7 +1436,7 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     the dense solver on the same inputs. Returns the launches."""
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.pipeline import SlamConfig
-    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline import graphs, system
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system
 
     t0 = time.perf_counter()
@@ -1386,10 +1444,12 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     require(bcfg.ba_solver == "auto", f"system_cg: ba_solver {bcfg.ba_solver!r}")
     s = create_system(SlamConfig(), bcfg, seq.rig, (SIZE, SIZE))
     cg, dense_calls, windows = [], [], []
+    replays0 = {k: graphs.calls(system._WINDOWED_BA, solver=k) for k in ("cg", "dense")}
     with recorded_calls(system, "bundle_adjust_cg", cg), \
             recorded_calls(system, "bundle_adjust", dense_calls), \
-            recorded_calls(system, "_windowed_ba", windows):
+            recorded_calls(system, "_windowed_ba", windows, copy=True):
         run = timed_system_run(s, seq)
+    replays = {k: graphs.calls(system._WINDOWED_BA, solver=k) - v for k, v in replays0.items()}
     launches, dt, pose_ok, ate, runs, backend, dispatch, records = (
         run[k] for k in ("launches", "dt", "pose_ok", "ate", "runs", "backend_ms", "ba_dispatch",
                          "records"))
@@ -1398,7 +1458,8 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     in_ba = window_syncs(records, f"{os.sep}backend{os.sep}ba.py")
     print(f"[system_cg] ba_window {CG_WINDOW}, ba_solver 'auto': windows by solver "
           f"{dict(solvers)}, bundle_adjust_cg calls {len(cg)}, bundle_adjust calls "
-          f"{len(dense_calls)}; {n} frames {dt / n * 1e3:.2f} ms/frame; keyframes "
+          f"{len(dense_calls)} (Python calls: a captured window's warm-up and capture; its "
+          f"replays make none), replays of the captured window by solver {replays}; {n} frames {dt / n * 1e3:.2f} ms/frame; keyframes "
           f"{s.n_keyframes} (dense {dense['n_keyframes']}), BA runs {s.n_ba_runs}; pose_ok "
           f"{pose_ok:.3f}, ATE {ate:.5f} m; launches {launches}")
     print(f"[system_cg] backend_ms median {float(np.median(backend)):.2f} (dense "
@@ -1410,8 +1471,15 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     print(f"[system_cg] BA rmse before/after/dropped: "
           + "; ".join(f"{a:.4f}/{b:.4f}/{int(c)}" for a, b, c in runs))
     a, kw = windows[-1]
-    cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **dict(kw, solver=k))
-                             for k in ("dense", "cg")})
+
+    def window(solver: str, graphed: bool):
+        fn = functools.partial(system._windowed_ba, *a, **dict(kw, solver=solver))
+        if graphed:
+            return fn
+        return lambda: eager_call(fn)
+
+    cost, by_op = step_cost({f"{k}{' graphed' if g else ''}": window(k, g)
+                             for g in (False, True) for k in ("dense", "cg")})
     print(f"[system_cg] one windowed BA (the last keyframe's inputs, {int(s.kf_db.valid.sum())} "
           f"keyframes in a {CG_WINDOW}-slot window, {kw['iterations']} LM steps) on "
           f"{card_line()}: " + "; ".join(
@@ -1421,15 +1489,16 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     for k, ops in by_op.items():
         print(f"[system_cg] {k}: device ms by operator (top 5): "
               + ", ".join(f"{op[:40]} {v:.3f}" for op, v in ops.most_common(5)))
-    put = {k: by_op[k].get("aten::index_put_", 0.0) for k in cost}
+    put = {k: by_op[k].get("aten::index_put_", 0.0) for k in ("dense", "cg")}
     print(f"[system_cg] one window's index_put_ device ms: " + ", ".join(
         f"{k} {put[k]:.3f} of {cost[k][1]:.3f} busy ({put[k] / cost[k][1]:.4f}), "
         f"segment_reduce {by_op[k].get('aten::segment_reduce', 0.0):.3f}, "
-        f"mm {by_op[k].get('aten::mm', 0.0):.3f}" for k in cost))
+        f"mm {by_op[k].get('aten::mm', 0.0):.3f}" for k in put))
     print(f"[system_cg] phase {time.perf_counter() - t0:.1f} s")
-    require(solvers == Counter(cg=s.n_ba_runs) and len(cg) == s.n_ba_runs and not dense_calls,
+    require(solvers == Counter(cg=s.n_ba_runs) and not dense_calls
+            and replays == {"cg": s.n_ba_runs, "dense": 0},
             f"system_cg: windows by solver {dict(solvers)}, {len(cg)} CG calls, "
-            f"{len(dense_calls)} dense calls for {s.n_ba_runs} BA runs")
+            f"{len(dense_calls)} dense calls, replays {replays} for {s.n_ba_runs} BA runs")
     require(launches == {"lk_fb": 2 * n, "orb": n},
             f"system_cg: launches {launches} != 2 LK + 1 ORB per frame over {n} frames")
     require(s.n_keyframes == dense["n_keyframes"],
@@ -1484,17 +1553,19 @@ def worst_residuals(system_module, windows: list):
 def run_windows(seq, cfg, bcfg, deterministic: bool = False):
     """One untimed system run over the first REPEAT_FRAMES frames, without
     the flush (so that each window is one the 80-frame run also solves,
-    from the same state): (the BA runs' [rmse_before, rmse_after,
-    dropped], the five worst residuals of each window)."""
+    from the same state), eagerly (``graphs.eager()``: the residuals are
+    read on the host inside each window): (the BA runs' [rmse_before,
+    rmse_after, dropped], the five worst residuals of each window)."""
     import torch
 
     from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.graphs import eager
     from zenslam_tpu_torch.pipeline.system import create_system, process_frame
 
     windows, runs = [], []
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     try:
-        with worst_residuals(system, windows):
+        with eager(), worst_residuals(system, windows):
             s = create_system(cfg, bcfg, seq.rig, (SIZE, SIZE))
             infos = [process_frame(s, seq.left[t], seq.right[t])[1] for t in range(REPEAT_FRAMES)]
             runs = [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None]
@@ -2033,6 +2104,14 @@ def vio_branch_cost(opts_path, k: int, dev, pairs: int = COST_ROUNDS) -> dict:
     return cost
 
 
+def eager_call(fn):
+    """``fn()`` with every captured program run eagerly (``graphs.eager()``)."""
+    from zenslam_tpu_torch.pipeline.graphs import eager
+
+    with eager():
+        return fn()
+
+
 def step_cost(steps: dict, pairs: int = COST_ROUNDS) -> tuple:
     """Each of two step functions {name: fn} measured alike: device kernels
     and copies and their busy ms (``torch.profiler``, one call each after a
@@ -2159,13 +2238,17 @@ def phase_fulldress(dev):
 
 
 @contextlib.contextmanager
-def recorded_calls(module, name: str, calls: list):
+def recorded_calls(module, name: str, calls: list, copy: bool = False):
     """Inside the block, the calls of ``module.name`` are appended to
-    ``calls`` as (args, kwargs)."""
+    ``calls`` as (args, kwargs); with ``copy``, the arguments' tensors
+    copied (``graphs.fresh``: a captured step's state is its buffers, which
+    the next frame overwrites)."""
+    from zenslam_tpu_torch.pipeline.graphs import fresh
+
     inner = getattr(module, name)
 
     def recorded(*args, **kwargs):
-        calls.append((args, kwargs))
+        calls.append((fresh(args), kwargs) if copy else (args, kwargs))
         return inner(*args, **kwargs)
 
     setattr(module, name, recorded)
@@ -2185,15 +2268,17 @@ def corridor_plane_share(line_map) -> tuple:
 
 
 def phase_lines(dev):
-    """Keylines on the card (see the module docstring): (a) ``slam_step``
-    with ``use_keylines`` on a 1024x1024 strafe of the corridor with stripes;
+    """Keylines on the card (see the module docstring): (a) the step with
+    ``use_keylines`` (``slam_step`` over the warm-up frames, the captured
+    step from the last of them on) on a 1024x1024 strafe of the corridor with stripes;
     (b) the keylines recipe through ``app.main``. Returns {path: launches}."""
     import torch
 
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
     from zenslam_tpu_torch.io.synthetic import make_sequence
-    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step, slam_step
+    from zenslam_tpu_torch.pipeline.graphs import fresh
 
     t0 = time.perf_counter()
     seq = make_sequence(np.random.default_rng(11), n_frames=LINES_FRAMES, width=SIZE,
@@ -2207,19 +2292,22 @@ def phase_lines(dev):
     res = {}
     for name, cfg in (("lines", cfg_on), ("no_lines", SlamConfig())):
         state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+        step = make_slam_step(cfg, seq.rig)
         tels = []
         with implicit_syncs() as records:
-            for t in range(LINES_WARMUP):
-                state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            for t in range(LINES_WARMUP):   # eager, the last one through its capture
+                run = step if t == LINES_WARMUP - 1 else functools.partial(slam_step, cfg,
+                                                                           seq.rig)
+                state, tel = run(state, seq.left[t], seq.right[t])
                 tels.append(tel)
             torch.cuda.synchronize()
         reset_launches()
         t1 = time.perf_counter()
         for t in range(LINES_WARMUP, LINES_FRAMES - 1):
-            state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            state, tel = step(state, seq.left[t], seq.right[t])
             tels.append(tel)
-        before_last = state
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[-1], seq.right[-1])
+        before_last = fresh(state)
+        state, tel = step(state, seq.left[-1], seq.right[-1])
         tels.append(tel)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
@@ -2237,7 +2325,7 @@ def phase_lines(dev):
     sites = sync_sites(records)
     in_lines = sync_sites([w for w in records if w.filename.endswith(
         ("ops/lines.py", "pipeline/lines_step.py"))])
-    print(f"[lines] slam_step with keylines, {n} frames: {ms:.2f} ms/frame "
+    print(f"[lines] the captured step with keylines, {n} frames: {ms:.2f} ms/frame "
           f"({res['no_lines'][1]:.2f} with keylines off, same frames, same call) on "
           f"{card_line()}; pose_ok {ok_share:.3f}, ATE {ate:.5f} m (keylines off "
           f"{res['no_lines'][6]:.5f} m), launches {launches}")
@@ -2482,30 +2570,34 @@ def phase_kidnap(dev):
 
 
 def family_run(cfg, seq, dev) -> dict:
-    """``slam_step`` over the slice phase's first FAMILY_FRAMES frames:
-    N_WARMUP warm-up frames
-    (their implicit synchronises recorded), then every launch counter at 0
-    and the measured frames timed up to a synchronise. Returns the run's
-    numbers, the states before FAMILY_COST_FRAME and REFRESH_CHECK_FRAME,
-    and the rows under the refresh mask per measured frame."""
+    """The step over the slice phase's first FAMILY_FRAMES frames: N_WARMUP
+    warm-up frames through ``slam_step``, the last of them through the
+    captured step's capture (their implicit synchronises recorded), then
+    every launch counter at 0 and the measured frames through the captured
+    step, timed up to a synchronise. Returns the run's numbers, the states
+    before FAMILY_COST_FRAME and REFRESH_CHECK_FRAME, and the rows under the
+    refresh mask per measured frame."""
     import torch
 
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
-    from zenslam_tpu_torch.pipeline import init_state, slam_step
+    from zenslam_tpu_torch.pipeline import init_state, make_slam_step, slam_step
+    from zenslam_tpu_torch.pipeline.graphs import fresh
 
     state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
+    step = make_slam_step(cfg, seq.rig)
     tels, before, rows = [], {}, []
     with implicit_syncs() as records:
         for t in range(N_WARMUP):
-            state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            run = step if t == N_WARMUP - 1 else functools.partial(slam_step, cfg, seq.rig)
+            state, tel = run(state, seq.left[t], seq.right[t])
             tels.append(tel)
         torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     for t in range(N_WARMUP, FAMILY_FRAMES):
         if t in (FAMILY_COST_FRAME, REFRESH_CHECK_FRAME):
-            before[t] = state
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
+            before[t] = fresh(state)
+        state, tel = step(state, seq.left[t], seq.right[t])
         tels.append(tel)
         f = state.features   # ages and validity as the describe stage saw them
         rows.append((f.valid & (f.age % max(cfg.describe_refresh, 1) == 0)).sum())
@@ -2797,6 +2889,8 @@ def routed_drops(system_module, drops: list, windows: list):
     """Inside the block, append to ``drops`` the route-drop count (a device
     tensor, unread) of every live dist BA, and to ``windows`` the
     (arguments, keyword arguments, outputs) of every ``_windowed_ba`` call."""
+    from zenslam_tpu_torch.pipeline.graphs import fresh
+
     route, window = system_module.shard_ba_problem_device, system_module._windowed_ba
 
     def routed(*args, **kwargs):
@@ -2805,8 +2899,9 @@ def routed_drops(system_module, drops: list, windows: list):
         return ps, n
 
     def windowed(*args, **kwargs):
+        kept = fresh(args)     # the step's state is its buffers, overwritten by the next frame
         out = window(*args, **kwargs)
-        windows.append((args, kwargs, out))
+        windows.append((kept, kwargs, out))
         return out
 
     system_module.shard_ba_problem_device = routed
@@ -2984,7 +3079,8 @@ def window_witness(dense_windows: list, dist_windows: list, dev) -> None:
     system.bundle_adjust = catch("dense", solvers[0])
     system.dist_bundle_adjust = catch("dist8", solvers[1])
     try:
-        system._windowed_ba(*args, **dict(kwargs, solver="dense", mesh=None))
+        eager_call(functools.partial(system._windowed_ba, *args,
+                                     **dict(kwargs, solver="dense", mesh=None)))
         system._windowed_ba(*args, **dict(kwargs, solver="dist",
                                           mesh=system._live_ba_mesh(8, dev)))
     finally:
@@ -3105,8 +3201,10 @@ def phase_dist(seq, dev, dense: dict) -> dict:
     windows = {"dense": dict(kw, solver="dense", mesh=None)}
     for n in (1, 8):
         windows[f"dist{n}"] = dict(kw, mesh=system._live_ba_mesh(n, dev))
-    cost, by_op = step_cost({k: functools.partial(system._windowed_ba, *a, **v)
-                             for k, v in windows.items()})
+    steps = {k: functools.partial(system._windowed_ba, *a, **v) for k, v in windows.items()}
+    steps["dense"] = functools.partial(eager_call, steps["dense"])   # eager, as dist runs
+    steps["dense graphed"] = functools.partial(system._windowed_ba, *a, **windows["dense"])
+    cost, by_op = step_cost(steps)
     print(f"[dist] one windowed BA (the last keyframe's inputs, {kw['iterations']} LM steps) on "
           f"{card_line()}: " + "; ".join(
               f"{k} {c[0]} device kernels and copies, device busy {c[1]:.3f} ms, host "
@@ -3153,6 +3251,306 @@ def phase_scaling(dev) -> dict:
     return launches
 
 
+def tree_tensors(tree) -> list:
+    """The tensors of ``tree``, in ``graphs.flatten``'s order."""
+    from zenslam_tpu_torch.pipeline.graphs import flatten
+
+    leaves = []
+    flatten(tree, leaves)
+    return leaves
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors (compared on their device, floats as their bit
+    patterns) or two numpy arrays are identical."""
+    import torch
+
+    if not isinstance(a, torch.Tensor):
+        return np.shape(a) == np.shape(b) and np.array_equal(a, b, equal_nan=True)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return torch.equal(a, b)
+
+
+def parted(a: dict, b: dict) -> list:
+    """The names whose values differ in any bit between two runs' outputs."""
+    return [k for k in a if not same_bits(a[k], b[k])]
+
+
+def _f64(x) -> np.ndarray:
+    import torch
+
+    return x.double().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float64)
+
+
+def held_to_eager(tag: str, what: str, e1: dict, g: dict, again) -> None:
+    """Require the graphed run's outputs ``g`` bit-identical to the eager
+    run's ``e1``; where they part, run eager ``again()`` and hold the graphed
+    outputs within the spread of the two eager runs, naming them."""
+    off = parted(e1, g)
+    if not off:
+        print(f"[graphs] {what}: graphed bit-identical to eager ({len(e1)} outputs)")
+        return
+    e2 = again()
+    spread = {k: float(np.max(np.abs(_f64(e2[k]) - _f64(e1[k])), initial=0.0))
+              for k in off if np.shape(e1[k]) == np.shape(e2[k])}
+    gap = {k: float(np.max(np.abs(_f64(g[k]) - _f64(e1[k])), initial=0.0))
+           for k in off if np.shape(e1[k]) == np.shape(g[k])}
+    print(f"[graphs] {what}: graphed parts from eager on {off}; two eager runs part on "
+          f"{parted(e1, e2)}; max |graphed - eager| {gap}, eager's own spread {spread}")
+    require(all(k in spread and k in gap and gap[k] <= spread[k] for k in off),
+            f"{tag}: graphed outside eager's own spread on {off}")
+
+
+def slice_run(seq, dev, graphed: bool, states: bool) -> dict:
+    """The slice's N_FRAMES frames through ``make_slam_step`` (graphed, or
+    under ``graphs.eager()``): host ms/frame over the frames after N_WARMUP
+    (up to a synchronise), every frame's packed telemetry and, with
+    ``states``, every frame's state, copied."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step
+    from zenslam_tpu_torch.pipeline.graphs import eager, fresh
+
+    cfg = SlamConfig()
+    step = make_slam_step(cfg, seq.rig)
+    s = init_state(cfg, (SIZE, SIZE), device=dev)
+    out = {"tel": [], "state": []}
+    with contextlib.nullcontext() if graphed else eager():
+        for t in range(N_FRAMES):
+            if t == N_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            s, _, p = step.run(s, seq.left[t], seq.right[t])
+            out["tel"].append(p)
+            if states:
+                out["state"].append(fresh(s) if graphed else s)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES - N_WARMUP)
+        out["step"], out["last"] = step, s
+    return out
+
+
+def hand_kernel_events(prof) -> dict:
+    """The hand kernels' launches that a ``torch.profiler`` trace saw on the
+    device, by kernel name (inside a graph replay too)."""
+    import torch
+
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"lk_fb": sum(bool(re.search(r"\blk_fb_kernel\b", n)) for n in names),
+            "orb": sum(bool(re.search(r"\borb_kernel\b", n)) for n in names)}
+
+
+def counted_on_device(tag: str, prof, before: dict) -> dict:
+    """Require the hand kernels' events in ``prof`` to equal their counters'
+    increase since ``before`` (the count of a replay is the one its capture
+    recorded: this holds it to what ran). Returns the counts."""
+    seen, counted = hand_kernel_events(prof), _since_counts(before)
+    require(seen == counted, f"{tag}: the trace saw kernels {seen}, the counters rose by "
+                             f"{counted}")
+    return seen
+
+
+def _since_counts(before: dict) -> dict:
+    return {k: v - before[k] for k, v in read_launches().items()}
+
+
+def profiled_frames(step, state, seq, first: int, n: int, graphed: bool) -> tuple:
+    """(device busy ms, device events, graph launches, hand kernel launches)
+    a frame over ``n`` frames of ``step`` from ``state`` (``torch.profiler``);
+    the hand kernels' events in the trace must equal their counters'
+    increase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zenslam_tpu_torch.pipeline.graphs import eager
+
+    with contextlib.nullcontext() if graphed else eager():
+        torch.cuda.synchronize()
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for t in range(first, first + n):
+                state, _ = step(state, seq.left[t], seq.right[t])
+            torch.cuda.synchronize()
+    kernels = counted_on_device(f"graphs: {'graphed' if graphed else 'eager'} frames", prof,
+                                before)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    graph_launches = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch")
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / n, len(events) / n,
+            graph_launches / n, {k: v / n for k, v in kernels.items()})
+
+
+def system_outputs(s, tels) -> dict:
+    """What ``[graphs]`` holds two system runs to: every frame's pose and
+    keyframe flag, the keyframe database, the BA runs and the loop verdicts."""
+    out = {"R": np.stack([t.R_cw for t in tels]), "t": np.stack([t.t_cw for t in tels]),
+           "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
+           "counts": np.array([s.n_keyframes, s.n_ba_runs, s.n_loop_closures, s.n_relocs]),
+           "loop_scores": np.array([d["score"] for d in s.loop_debug], np.float64),
+           "loop_fired": np.array([d["fired"] for d in s.loop_debug])}
+    for k, a in zip(s.kf_db._fields, tree_tensors(s.kf_db)):
+        out[f"kf_db.{k}"] = a
+    return out
+
+
+def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE, SIZE),
+                   cfg=None) -> tuple:
+    """A system run over ``frames`` frames through ``process_frame`` and
+    ``flush_pipeline`` (graphed, or under ``graphs.eager()``): (outputs,
+    host ms/frame up to a synchronise, median ``backend_ms``, the system)."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.pipeline.system import (
+        BackendConfig, create_system, flush_pipeline, process_frame)
+
+    frames = frames or SYSTEM_FRAMES
+    s = create_system(cfg or SlamConfig(), bcfg or BackendConfig(telemetry_lag=3), seq.rig,
+                      shape, device=dev)
+    tels, backend = [], []
+    with contextlib.nullcontext() if graphed else eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [process_frame(s, seq.left[t], seq.right[t]) for t in range(frames)]
+        rows += flush_pipeline(s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / frames
+    for tel, info in rows:
+        if tel is not None:
+            tels.append(tel)
+        if info["backend_ms"] > 0:
+            backend.append(info["backend_ms"])
+    return system_outputs(s, tels), ms, float(np.median(backend)), s
+
+
+def phase_graphs(seq, dev) -> dict:
+    """``[graphs]``: the captured programs (``pipeline/graphs.py``) held
+    against the same code under ``graphs.eager()`` in one process, the order
+    alternated; where two eager runs part, graphed within their spread.
+    Returns the launches of its graphed runs."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.pipeline import SlamConfig
+    from zenslam_tpu_torch.pipeline import graphs, system
+    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.pipeline.system import BackendConfig
+
+    t0 = time.perf_counter()
+    card = card_line()
+    # (a) the slice: eager, graphed, graphed, eager
+    runs, peak, launches = [], {}, Counter()
+    for i, graphed in enumerate((False, True, True, False)):
+        torch.cuda.reset_peak_memory_stats()
+        held0, cap0 = graphs.graphs_held(), len(graphs.capture_ms())
+        before = read_launches()
+        runs.append(slice_run(seq, dev, graphed, states=i < 2))
+        if graphed:
+            launches.update({k: v - before[k] for k, v in read_launches().items()})
+        if i >= 2:      # the runs that keep no state copies
+            peak[graphed] = torch.cuda.max_memory_allocated() / 2 ** 20
+        if i == 1:
+            capture = graphs.capture_ms()[cap0:]
+            held = graphs.graphs_held() - held0
+    e1, g1, g2, e2 = runs
+    launches = dict(launches)
+    def named(run) -> dict:
+        out = {f"tel{t}": x for t, x in enumerate(run["tel"])}
+        out.update({f"state{t}.{i}": a for t, st in enumerate(run["state"])
+                    for i, a in enumerate(tree_tensors(st))})
+        return out
+
+    e1_out, g1_out = named(e1), named(g1)
+    held_to_eager("graphs", f"slice {SIZE}x{SIZE}, {N_FRAMES} frames, every frame's state "
+                            f"({len(tree_tensors(g1['last']))} tensors) and telemetry",
+                  e1_out, g1_out, lambda: {**e1_out, **named(e2)})
+    require(not parted(named(g2), g1_out), "graphs: the two graphed slice runs part")
+    busy = {}
+    for name, run, graphed in (("eager", e2, False), ("graphed", g2, True)):
+        busy[name] = profiled_frames(run["step"], run["last"], seq, N_FRAMES - PROFILE_FRAMES,
+                                     PROFILE_FRAMES, graphed)
+    ms = {"eager": (e1["ms"], e2["ms"]), "graphed": (g1["ms"], g2["ms"])}
+    for name in ("eager", "graphed"):
+        b, n_ev, n_graph, per_frame = busy[name]
+        host = float(np.mean(ms[name]))
+        print(f"[graphs] slice {name}: host {ms[name][0]:.2f} / {ms[name][1]:.2f} ms/frame "
+              f"({N_FRAMES - N_WARMUP} frames, two runs), device busy {b:.3f} ms/frame, idle "
+              f"share {1 - b / host:.4f}, {n_ev:.0f} device kernels and copies a frame, "
+              f"{n_graph:.1f} graph launches a frame (torch.profiler, {PROFILE_FRAMES} frames), hand "
+              f"kernels a frame in the trace {per_frame} (= the counters' increase), peak "
+              f"{peak[name == 'graphed']:.1f} MiB; {card}")
+        require(per_frame == {"lk_fb": 2, "orb": 1},
+                f"graphs: slice {name}: hand kernels a frame in the trace {per_frame}")
+    print(f"[graphs] slice capture (warm-up + capture) {capture} ms, {held} graph(s) held by "
+          f"the run; launches over the two graphed runs {launches}")
+    # the donation: the new state copied into the state's buffers as the graph ends
+    # (here every tensor of it; the step skips those it passed through unchanged)
+    state = tree_tensors(g2["last"])
+    src = [t.clone() for t in state]
+    n_bytes = sum(t.numel() * t.element_size() for t in state)
+    copy = summary(time_device(lambda: torch._foreach_copy_(state, src)))
+    print(f"[graphs] the state's copy into its buffers ({len(state)} tensors, {n_bytes} bytes, "
+          f"one _foreach_copy_): device {copy['median'] * 1e3:.2f} us {copy['spread']} ms, "
+          f"bound {2 * n_bytes / PEAK_BYTES * 1e6:.2f} us (read + write at HBM's rate)")
+    require(launches == {"lk_fb": 4 * N_FRAMES, "orb": 2 * N_FRAMES},
+            f"graphs: slice launches {launches} != 2 LK + 1 ORB a frame over two graphed runs")
+
+    # (b) the 80-frame system: eager, graphed
+    e_sys, e_ms, e_back, _ = graphed_system(seq, dev, False)
+    g_sys, g_ms, g_back, gs = graphed_system(seq, dev, True)
+    held_to_eager("graphs", f"system {SYSTEM_FRAMES} frames (keyframes, BA runs, loop "
+                            "verdicts, poses, keyframe database)", e_sys, g_sys,
+                  lambda: graphed_system(seq, dev, False)[0])
+    print(f"[graphs] system eager / graphed: {e_ms:.2f} / {g_ms:.2f} ms/frame, backend_ms "
+          f"median {e_back:.2f} / {g_back:.2f}; keyframes {gs.n_keyframes}, BA runs "
+          f"{gs.n_ba_runs}, loop gates {len(gs.loop_debug)}; {card}")
+
+    # (c) one CG window on the graphed system's last inputs
+    lm = gs.state.lmap
+    args = (gs.kf_db, lm.xyz, lm.valid, lm.generation, gs.state.R_cw, gs.state.t_cw, gs.rig)
+    kw = dict(W=CG_WINDOW, solver="cg", iterations=gs.bcfg.ba_iterations)
+
+    def window(graphed):
+        with contextlib.nullcontext() if graphed else eager():
+            out = system._windowed_ba(*args, **kw)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                system._windowed_ba(*args, **kw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        return {str(i): a for i, a in enumerate(tree_tensors(out))}, float(np.median(times))
+
+    (we, we_ms), (wg, wg_ms) = window(False), window(True)
+    held_to_eager("graphs", f"one CG window (ba_window {CG_WINDOW}, "
+                            f"{int(gs.kf_db.valid.sum())} keyframes)", we, wg,
+                  lambda: window(False)[0])
+    print(f"[graphs] CG window host ms eager / graphed: {we_ms:.2f} / {wg_ms:.2f} (median of 3)")
+
+    # (d) the loop orbit, loops on ([loop]'s configs)
+    orbit = loop_orbit(dev)
+    lcfg = SlamConfig(max_keypoints=256, max_landmarks=4096, kf_min_frames=2,
+                      kf_min_translation=0.05)
+    lb = BackendConfig(ba_every_kf=False, enable_loop_closure=True, bow_branch=32,
+                       bow_top_k=5, bow_min_score=0.20, bow_min_frame_gap=15,
+                       loop_min_inliers=12)
+    lo = dict(bcfg=lb, frames=64, shape=(240, 320), cfg=lcfg)
+    g_loop, gl_ms, _, gl = graphed_system(orbit, dev, True, **lo)
+    e_loop, el_ms, _, _ = graphed_system(orbit, dev, False, **lo)
+    held_to_eager("graphs", "loop orbit (64 frames, loops on)", e_loop, g_loop,
+                  lambda: graphed_system(orbit, dev, False, **lo)[0])
+    print(f"[graphs] loop orbit graphed / eager: {gl_ms:.2f} / {el_ms:.2f} ms/frame, loops "
+          f"{gl.n_loop_closures} at frames {[d['frame'] for d in gl.loop_debug if d['fired']]}")
+    require(gl.n_loop_closures >= 1, "graphs: no loop closed on the graphed orbit")
+    print(f"[graphs] graphs held {graphs.graphs_held()}; phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[], metavar="DIR",
@@ -3183,6 +3581,7 @@ def main() -> int:
         paths["system"], dense = phase_system(dev)
         paths["system_cg"] = phase_system_cg(seq, dev, dense)
         paths["loop"] = phase_loop(dev)
+        paths["graphs"] = phase_graphs(seq, dev)
         paths["kidnap"] = phase_kidnap(dev)
         app_paths, app_lk_err = phase_app(dev)
         paths.update(app_paths)

@@ -13,8 +13,13 @@ chip_smoke.py does), then over the measured frames reports:
 3. a torch.profiler trace of the unwrapped step: device busy time per frame
    (sum of kernel durations), the idle share against the unprofiled wall
    time of 2., the device kernels launched per frame, and the top operators
-   by device time.
+   by device time;
+4. the same for the captured step (``make_slam_step``: one CUDA graph,
+   ``pipeline/graphs.py``) from the same state on the same frames: wall
+   time unprofiled, device busy time, idle share, the kernels inside the
+   graph per frame and the graph launches per frame, and the capture's ms.
 
+Steps 1-3 run the eager ``slam_step``.
 With --out, the summary and the full operator table are written to FILE.
 Needs a CUDA device.
 """
@@ -51,7 +56,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from zenslam_tpu_torch.io.synthetic import make_sequence
-    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step, slam_step
+    from zenslam_tpu_torch.pipeline import graphs
     from zenslam_tpu_torch.pipeline import step as step_mod
 
     if not torch.cuda.is_available():
@@ -117,6 +123,29 @@ def main() -> int:
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / args.frames
     launches = len(kernels) / args.frames
 
+    # 4. the captured step over the same frames: untimed up to 2.'s first
+    # frame (the capture included), then 2.'s frames timed, 3.'s profiled
+    step = make_slam_step(cfg, seq.rig)
+    gstate = init_state(cfg, (args.size, args.size), device=dev)
+    first = args.warmup + args.frames
+    for t in range(first):
+        gstate, _ = step(gstate, seq.left[t], seq.right[t])
+    capture = graphs.capture_ms()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(first, first + args.frames):
+        gstate, _ = step(gstate, seq.left[t], seq.right[t])
+    torch.cuda.synchronize()
+    g_wall_ms = (time.perf_counter() - t0) * 1e3 / args.frames
+    first += args.frames
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+        for t in range(first, first + args.frames):
+            gstate, _ = step(gstate, seq.left[t], seq.right[t])
+        torch.cuda.synchronize()
+    g_kernels = [e for e in gprof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    g_busy_ms = sum(e.time_range.elapsed_us() for e in g_kernels) / 1e3 / args.frames
+    g_launch = sum(e.count for e in gprof.key_averages() if e.key == "cudaGraphLaunch")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
@@ -129,11 +158,17 @@ def main() -> int:
                  f"profiler); device busy {busy_ms:.3f} ms/frame, idle share "
                  f"{1 - busy_ms / wall_ms:.4f} of the unprofiled frame; "
                  f"{launches:.0f} device kernels/frame")
+    lines.append(f"captured step (one CUDA graph): {g_wall_ms:.2f} ms/frame wall unprofiled; "
+                 f"device busy {g_busy_ms:.3f} ms/frame, idle share "
+                 f"{1 - g_busy_ms / g_wall_ms:.4f}; {len(g_kernels) / args.frames:.0f} device "
+                 f"kernels/frame inside the graph, {g_launch / args.frames:.2f} graph "
+                 f"launches/frame; capture (warm-up + capture) {capture[-1]:.1f} ms")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n\n"
-                    + events.table(sort_by=dev_attr, row_limit=25) + "\n")
+                    + events.table(sort_by=dev_attr, row_limit=25) + "\n\ncaptured step:\n"
+                    + gprof.key_averages().table(sort_by=dev_attr, row_limit=25) + "\n")
     print("\n".join(lines))
     print(events.table(sort_by=dev_attr, row_limit=12))
     return 0

@@ -32,7 +32,11 @@ group is within 1e-4 of the CPU's over gloo, with no synchronise. A
 default-config ``slam_step`` makes no implicit synchronise; BA's planned
 block sums repeat bit for bit and equal ``index_add_`` on the CPU; the
 fused multiply-add of ``ops/image.py`` (what the blurs and ORB moments run
-on CUDA) is bit-identical to its float64 emulation.
+on CUDA) is bit-identical to its float64 emulation. The captured programs
+(``pipeline/graphs.py``, CUDA graphs): ``make_slam_step`` over 8 frames at
+512x384 bit-identical to its eager form with 2 LK + 1 ORB launches a frame
+counted through the replays, the dense and CG windows bit-identical to
+eager, and a capture that cannot succeed raises.
 """
 
 import numpy as np
@@ -928,3 +932,85 @@ def test_fused_fma_bit_identical_to_float64_on_card(dev):
     finally:
         image.fma, orb.fma = saved
     assert [int((x != y).sum()) for x, y in zip(fused, emulated)] == [0, 0, 0, 0]
+
+
+def _tree_identical(a, b) -> bool:
+    from zenslam_tpu_torch.pipeline.graphs import flatten
+
+    la, lb = [], []
+    flatten(a, la)
+    flatten(b, lb)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+def test_graphed_step_bit_identical_to_eager(dev):
+    """``make_slam_step``'s captured step (a CUDA graph, its state updated
+    in place) over 8 frames at 512x384 against the same step under
+    ``graphs.eager()``: every state and telemetry tensor bit-identical, and
+    the replays count 2 LK + 1 ORB launches a frame (16 / 8)."""
+    from zenslam_tpu_torch.pipeline import make_slam_step
+    from zenslam_tpu_torch.pipeline.graphs import eager
+
+    seq = make_sequence(np.random.default_rng(11), n_frames=8, motion="strafe",
+                        device_render=True, device=dev)
+    cfg = SlamConfig()
+    step = make_slam_step(cfg, seq.rig)
+    ref, s = [], init_state(cfg, (384, 512), device=dev)
+    with eager():
+        for t in range(8):
+            s, tel = step(s, seq.left[t], seq.right[t])
+            ref.append((s, tel))
+    lk0, orb0 = lk_cuda.lk_ragged.launches, orb_cuda.orb_steered_brief.launches
+    s = init_state(cfg, (384, 512), device=dev)
+    for t in range(8):
+        s, tel = step(s, seq.left[t], seq.right[t])
+        assert _tree_identical(s, ref[t][0]) and _tree_identical(tel, ref[t][1]), t
+    assert lk_cuda.lk_ragged.launches - lk0 == 16
+    assert orb_cuda.orb_steered_brief.launches - orb0 == 8
+    assert step.program.captured and all(c.graph is not None
+                                         for c in step.program.captured.values())
+
+
+@pytest.mark.cuda
+def test_graphed_windows_bit_identical_to_eager(dev):
+    """The windowed BA as a captured program, dense (W=8) and CG (W=24), on
+    a 16-frame system's inputs at 512x384: outputs bit-identical to the
+    eager window, on the first replay and the next."""
+    from zenslam_tpu_torch.pipeline.graphs import eager
+
+    seq = make_sequence(np.random.default_rng(11), n_frames=16, motion="strafe",
+                        device_render=True, device=dev)
+    s = psystem.create_system(SlamConfig(), psystem.BackendConfig(), seq.rig, (384, 512),
+                              device=dev)
+    psystem.run_system(s, seq.left, seq.right)
+    assert s.n_ba_runs >= 1
+    lm = s.state.lmap
+    args = (s.kf_db, lm.xyz, lm.valid, lm.generation, s.state.R_cw, s.state.t_cw, s.rig)
+    for solver, W in (("dense", 8), ("cg", 24)):
+        with eager():
+            want = psystem._windowed_ba(*args, W=W, solver=solver, iterations=6)
+        for _ in range(2):
+            got = psystem._windowed_ba(*args, W=W, solver=solver, iterations=6)
+            assert _tree_identical(got, want), solver
+    keys = [k for k in psystem._WINDOWED_BA.captured if dict(k[0])["W"] in (8, 24)]
+    assert len(keys) >= 2
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(dev):
+    """A program whose function reads the device (``float`` of a tensor, a
+    synchronise) cannot be captured: the call raises, nothing is kept, and
+    nothing falls back to the eager form."""
+    from zenslam_tpu_torch.pipeline.graphs import Program
+
+    def reads_back(x):
+        return (x + float(x.sum()),)
+
+    prog = Program(reads_back)
+    x = torch.arange(8.0, device=dev)
+    with pytest.raises(RuntimeError):
+        prog(x)
+    assert not prog.captured
+    torch.cuda.synchronize()
+    assert float((x * 2).sum()) == 56.0

@@ -7,18 +7,23 @@ system's published CPU number.
 Three runs, in the reference's order, on the 'arc' sequence rendered on the
 device (seed 11, speed 0.5):
 
-- secondary: ``slam_step`` at 512x384 over 60 frames (8 untimed);
+- secondary: the step at 512x384 over 60 frames (8 untimed);
 - full system: ``process_frame`` with ``BackendConfig(telemetry_lag=3)`` at
   1024x1024 over 80 frames (a throwaway system over every frame first, then a
   fresh one: 10 untimed frames, the other 70 and the final
   ``flush_pipeline`` timed), with the median host ``backend_ms`` of its
   keyframes;
-- primary: ``slam_step`` at 1024x1024 over 208 frames (8 untimed, 200 timed).
+- primary: the step at 1024x1024 over 208 frames (8 untimed, 200 timed).
+
+The step is ``make_slam_step``'s captured program and the system's is its
+own (``pipeline/graphs.py``: CUDA graphs, the reference's jit), so the
+first untimed frame captures it.
 
 Each timed span ends in ``torch.cuda.synchronize``, where the reference
 waits on ``jax.block_until_ready``; the clock is the host's. The stderr
 lines are the reference's, plus the launches of the two hand kernels over
-each run's timed frames and the card's name and power limit (``nvidia-smi
+each run's timed frames, whether the programs were captured, and the card's
+name and power limit (``nvidia-smi
 --query-gpu=name,power.limit``). The last line on stdout is the
 reference's one JSON object: ``metric``, ``value`` (the primary fps),
 ``unit``, ``vs_baseline`` (against 0.063 s a frame). The run is on CUDA
@@ -69,32 +74,46 @@ def _since(before: dict) -> dict:
 
 
 def run_fps(width, height, n_frames, n_warmup=8, seed=11, device=None, record=None):
-    """``slam_step`` frames/s with the default config: ``n_warmup`` untimed
-    frames, the rest timed. Returns (fps, the last frame's telemetry).
-    ``record``: a dict filled with ``seq``, ``tels`` (every frame's
-    telemetry, on the device) and ``launches`` (the kernels' launches over
-    the timed frames)."""
-    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+    """Frames/s of the step (``make_slam_step``: the captured ``slam_step``,
+    plain under ``graphs.eager()``) with the default config: ``n_warmup``
+    untimed frames, the rest timed. Returns (fps, the last frame's
+    telemetry). ``record``: a dict filled with ``seq``, ``packed`` (a copy
+    of every frame's packed telemetry, ``pack_telemetry``'s layout, on the
+    device), ``tels`` (float32 views of them), ``before_last`` (a copy of
+    the state before the last frame), ``step`` (the captured step) and
+    ``launches`` (the kernels' launches over the timed frames)."""
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step
+    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.pipeline.state import split_telemetry
     from zenslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     seq = _arc_sequence(width, height, n_frames, seed, dev)
     cfg = SlamConfig()
+    step = make_slam_step(cfg, seq.rig)
     state = init_state(cfg, (height, width), device=dev)
-    tels = []
+    packed = []
+
+    def frame(state, t):
+        if record is not None and t == n_frames - 1:
+            record["before_last"] = fresh(state)
+        state, tel, p = step.run(state, seq.left[t], seq.right[t])
+        if record is not None:
+            packed.append(p)
+        return state, tel
+
     for t in range(n_warmup):
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
-        tels.append(tel)
+        state, tel = frame(state, t)
     _sync(dev)
     before = kernel_launches()
     t0 = time.perf_counter()
     for t in range(n_warmup, n_frames):
-        state, tel = slam_step(cfg, seq.rig, state, seq.left[t], seq.right[t])
-        tels.append(tel)
+        state, tel = frame(state, t)
     _sync(dev)
     dt = time.perf_counter() - t0
     if record is not None:
-        record.update(seq=seq, tels=tels, launches=_since(before))
+        record.update(seq=seq, packed=packed, tels=[split_telemetry(p) for p in packed],
+                      step=step, launches=_since(before))
     return (n_frames - n_warmup) / dt, tel
 
 
@@ -181,6 +200,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.pipeline.graphs import graphs_held, graphs_on
     from zenslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -209,6 +229,8 @@ def main(argv=None) -> int:
           f"inliers {int(tel.n_pose_inliers)}", file=sys.stderr)
     print("launches over the timed frames: " + ", ".join(
         f"{k} {v}" for k, v in launches.items()), file=sys.stderr)
+    print(f"captured programs: {'off (eager)' if not graphs_on() else 'on'}, "
+          f"{graphs_held()} held", file=sys.stderr)
     print(card_line() if dev.type == "cuda" else f"device {dev}", file=sys.stderr)
 
     print(json.dumps({

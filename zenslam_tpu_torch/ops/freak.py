@@ -7,6 +7,8 @@ matcher as ORB."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,18 +46,16 @@ def _pair_selection(n_bits: int = 256) -> np.ndarray:
 
 
 _PLANE_SIGMAS = (1.0, 2.5, 5.0)
-_TABLES: dict = {}
+@functools.lru_cache(maxsize=1)
+def _host_tables() -> tuple:
+    pat = _retina_pattern()
+    return pat[:, :2].copy(), pat[:, 2].astype(np.int64), _pair_selection().astype(np.int64)
 
 
 def _tables(device):
-    """(field offsets (43, 2), field planes (43,), pairs (256, 2)) on ``device``."""
-    key = str(device)
-    if key not in _TABLES:
-        pat = _retina_pattern()
-        _TABLES[key] = (upload_constant(pat[:, :2].copy(), device),
-                        upload_constant(pat[:, 2].astype(np.int64), device),
-                        upload_constant(_pair_selection().astype(np.int64), device))
-    return _TABLES[key]
+    """(field offsets (43, 2), field planes (43,), pairs (256, 2)) on
+    ``device`` (``upload_constant`` uploads each once)."""
+    return tuple(upload_constant(t, device) for t in _host_tables())
 
 
 def freak_descriptors(img, xy, valid):

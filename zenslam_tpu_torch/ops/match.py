@@ -13,6 +13,8 @@ default for matmuls.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -95,20 +97,15 @@ def match_descriptors_float(desc_a, desc_b, valid_a, valid_b, max_distance: floa
                            gate_mask, 1e9)
 
 
+@functools.lru_cache(maxsize=None)
 def _lsh_planes(dim: int = 128, bits: int = 256, seed: int = 77) -> np.ndarray:
     """(dim, bits) f32 random hyperplanes, the reference's numpy draw."""
     rs = np.random.RandomState(seed)
     return rs.normal(0.0, 1.0, size=(dim, bits)).astype(np.float32)
 
 
-_PLANES: dict = {}
-
-
 def _planes(dim: int, device) -> torch.Tensor:
-    key = (dim, str(device))
-    if key not in _PLANES:
-        _PLANES[key] = upload_constant(_lsh_planes(dim), device)
-    return _PLANES[key]
+    return upload_constant(_lsh_planes(dim), device)
 
 
 def lsh_binarize(desc):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from zenslam_tpu_torch.ops.image import fma, gaussian_blur
+from zenslam_tpu_torch.utils.device import upload_constant
 
 _PATCH_RADIUS = 15
 
@@ -114,7 +115,7 @@ def orb_descriptors(img, xy, valid):
     sm = gaussian_blur(img, sigma=2.0, radius=4)
     theta = orb_orientation(sm, xy)
     c, s = torch.cos(theta), torch.sin(theta)
-    pat = torch.from_numpy(ORB_PATTERN).to(img.device)
+    pat = upload_constant(ORB_PATTERN, img.device)
     sm_flat = sm.reshape(-1)
 
     def sample(px, py):

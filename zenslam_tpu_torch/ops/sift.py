@@ -7,6 +7,7 @@ clipped at 0.2 and renormalised. Matching uses the L2 matcher
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,16 +45,15 @@ def _gauss_window() -> np.ndarray:
     return np.exp(-r2 / (2.0 * _PATCH_HALF ** 2)).astype(np.float32)
 
 
-_TABLES: dict = {}
+@functools.lru_cache(maxsize=1)
+def _host_tables() -> tuple:
+    return _sample_offsets(), _cell_indicator(), _gauss_window()
 
 
 def _tables(device):
-    """(offsets, cell indicator, Gaussian window) on ``device``, copied once."""
-    key = str(device)
-    if key not in _TABLES:
-        _TABLES[key] = tuple(upload_constant(t, device) for t in
-                             (_sample_offsets(), _cell_indicator(), _gauss_window()))
-    return _TABLES[key]
+    """(offsets, cell indicator, Gaussian window) on ``device``
+    (``upload_constant`` uploads each once)."""
+    return tuple(upload_constant(t, device) for t in _host_tables())
 
 
 def sift_descriptors(img, xy, valid, scale: float = 1.0):

@@ -1,5 +1,6 @@
 """State tables, the per-frame SLAM step, the sequence runner and the full
-keyframe system."""
+keyframe system; ``eager`` (``pipeline/graphs.py``) runs the captured
+programs as plain PyTorch, the counterpart of ``jax.disable_jit``."""
 
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable,
@@ -10,6 +11,7 @@ from zenslam_tpu_torch.pipeline.state import (
     SlamState,
     init_state,
 )
+from zenslam_tpu_torch.pipeline.graphs import eager
 from zenslam_tpu_torch.pipeline.step import make_slam_step, slam_step
 from zenslam_tpu_torch.pipeline.runner import run_sequence
 from zenslam_tpu_torch.pipeline.system import (
@@ -22,5 +24,6 @@ from zenslam_tpu_torch.pipeline.system import (
 )
 
 __all__ = ["BackendConfig", "FeatureTable", "FrameTelemetry", "LandmarkMap", "MotionModel",
-           "SlamConfig", "SlamState", "SlamSystem", "create_system", "flush_pipeline",
-           "init_state", "make_slam_step", "process_frame", "run_sequence", "run_system", "slam_step"]
+           "SlamConfig", "SlamState", "SlamSystem", "create_system", "eager",
+           "flush_pipeline", "init_state", "make_slam_step", "process_frame", "run_sequence",
+           "run_system", "slam_step"]

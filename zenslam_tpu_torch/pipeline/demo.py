@@ -17,7 +17,7 @@ from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions, rpe_rmse
 from zenslam_tpu_torch.io.synthetic import make_sequence
 from zenslam_tpu_torch.pipeline.runner import run_sequence
 from zenslam_tpu_torch.pipeline.state import SlamConfig, init_state, resolve_device
-from zenslam_tpu_torch.pipeline.step import slam_step
+from zenslam_tpu_torch.pipeline.step import make_slam_step
 
 
 def _sync(dev):
@@ -36,14 +36,14 @@ def main(n_frames: int = 30, device=None, width: int = 512, height: int = 384):
     left = torch.as_tensor(seq.left, dtype=torch.float32).to(dev)
     right = torch.as_tensor(seq.right, dtype=torch.float32).to(dev)
 
-    t0 = time.time()      # warm-up: first-use work (kernel builds on CUDA)
-    state = init_state(cfg, (height, width), device=dev)
-    slam_step(cfg, seq.rig, state, left[0], right[0])
+    t0 = time.time()      # warm-up: first-use work (kernel builds, the step's capture)
+    step = make_slam_step(cfg, seq.rig)
+    step(init_state(cfg, (height, width), device=dev), left[0], right[0])
     _sync(dev)
     print(f"warm-up: {time.time() - t0:.1f}s")
 
     t0 = time.time()
-    state, tel = run_sequence(cfg, seq.rig, left, right, mode="scan", device=dev)
+    state, tel = run_sequence(cfg, seq.rig, left, right, mode="scan", device=dev, step=step)
     _sync(dev)
     dt = time.time() - t0
 

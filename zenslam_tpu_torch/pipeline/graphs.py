@@ -1,0 +1,320 @@
+"""Captured programs — the counterpart of ``jax.jit(fn, static_argnames=...,
+donate_argnames=...)`` as the reference applies it to ``slam_step``, the
+windowed BA and the loop and relocalisation gates.
+
+On CUDA a ``Program`` captures its function into a CUDA graph once for each
+combination of its static arguments, of its inputs' structure, non-tensor
+leaves, shapes, dtypes and devices, and of the settings that choose kernels
+(deterministic algorithms, TF32), as jit traces once for each, and replays
+that graph on every later call:
+
+- The inputs live in static buffers that the program owns. A call copies in
+  every tensor whose storage is not already its buffer, in one
+  ``torch._foreach_copy_``.
+- A donated argument's new value (the matching leading element of the
+  function's output tuple) is copied, at the end of the graph, into that
+  argument's own buffers, and the call returns those buffers: given back to
+  the next call they are copied nowhere (``donate_argnames``). The copy is
+  part of the graph, so it costs no launch of its own.
+- The other outputs are the graph's static outputs: each call overwrites the
+  previous call's. A caller that keeps one past the next call copies it
+  (``fresh``).
+- The first call warms the function up on a side stream, on the buffers
+  (copies of the caller's tensors, so the warm-up never touches the
+  caller's state), then captures it. A capture that fails raises; nothing
+  falls back to the eager form.
+- The hand kernels' launch counters (``lk_ragged.launches``,
+  ``orb_steered_brief.launches``) count Python calls, which a replay does
+  not make: the capture records each counter's increase and every call adds
+  it. The warm-up and the capture themselves count nothing.
+
+On the CPU the same buffer logic runs the function on the buffers instead
+of replaying a graph, so the CPU tests exercise it.
+
+``eager()`` is the counterpart of ``jax.disable_jit``: under it every
+program calls its function directly, as plain PyTorch. It is the only way
+to get the eager form on CUDA.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import inspect
+import time
+import weakref
+
+import torch
+
+_EAGER_DEPTH = 0
+_PROGRAMS = weakref.WeakSet()
+_TENSOR = object()   # a tensor's place in a flattened tree
+_LEAF = object()     # a non-tensor leaf (part of the key)
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every ``Program`` as its plain function inside the block (the
+    counterpart of ``jax.disable_jit``)."""
+    global _EAGER_DEPTH
+    _EAGER_DEPTH += 1
+    try:
+        yield
+    finally:
+        _EAGER_DEPTH -= 1
+
+
+def graphs_on() -> bool:
+    """Whether programs capture and replay (False inside ``eager()``)."""
+    return _EAGER_DEPTH == 0
+
+
+def _counters() -> tuple:
+    from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
+    from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
+
+    return lk_ragged, orb_steered_brief
+
+
+def read_counters() -> tuple:
+    """The hand kernels' launch counts, (LK, ORB)."""
+    return tuple(c.launches for c in _counters())
+
+
+def _set_counters(values) -> None:
+    for c, v in zip(_counters(), values):
+        c.launches = v
+
+
+def flatten(tree, leaves: list):
+    """Append ``tree``'s tensors to ``leaves`` in order; return a hashable
+    spec of the rest: containers (tuples, named tuples, lists, dicts) and
+    non-tensor leaves."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return _TENSOR
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(flatten(x, leaves) for x in tree))
+    if isinstance(tree, dict):
+        keys = tuple(tree)
+        return (dict, keys, tuple(flatten(tree[k], leaves) for k in keys))
+    return (_LEAF, tree)
+
+
+def unflatten(spec, leaves):
+    """Inverse of ``flatten``: ``leaves`` an iterator of tensors."""
+    if spec is _TENSOR:
+        return next(leaves)
+    kind = spec[0]
+    if kind is _LEAF:
+        return spec[1]
+    if kind is dict:
+        return {k: unflatten(s, leaves) for k, s in zip(spec[1], spec[2])}
+    items = [unflatten(s, leaves) for s in spec[1]]
+    if kind in (tuple, list):
+        return kind(items)
+    return kind(*items)
+
+
+def fresh(tree):
+    """``tree`` with its tensors copied while programs replay (a static
+    output kept past the next call), unchanged under ``eager()``."""
+    if not graphs_on():
+        return tree
+    leaves = []
+    spec = flatten(tree, leaves)
+    return unflatten(spec, iter([t.clone() for t in leaves]))
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+def _copy(dst: list, src: list) -> None:
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(dev: torch.device):
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+def _settings() -> tuple:
+    """The global settings that choose kernels: part of every key, as a
+    changed flag makes jit trace anew."""
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+
+
+class _Captured:
+    """One captured program: its buffers, its graph (CUDA) and its static
+    outputs."""
+
+    def __init__(self, program: "Program", static: dict, specs: dict, ranges: dict,
+                 leaves: list):
+        # the program's function and names, not the program: no reference cycle
+        # keeps a dropped program's graph and buffers alive
+        self.fn, self.name = program.fn, program.__name__
+        self.donate_argnames = program.donate_argnames
+        self.static, self.specs, self.ranges = static, specs, ranges
+        self.dev = leaves[0].device
+        self.cuda = self.dev.type == "cuda"
+        self.bufs = [t.detach().clone() for t in leaves]
+        self.graph = None
+        self.out_spec = None
+        self.outs = None
+        self.launches = (0, 0)
+        self.capture_ms = 0.0
+        self.calls = 0
+
+    def _args(self) -> dict:
+        it = iter(self.bufs)
+        args = {n: unflatten(s, it) for n, s in self.specs.items()}
+        args.update(self.static)
+        return args
+
+    def _donate(self, out) -> tuple:
+        """Copy the donated arguments' new values into their buffers; return
+        (output spec, output leaves with each donated leaf its buffer)."""
+        n_don = len(self.donate_argnames)
+        if n_don and not (isinstance(out, tuple) and len(out) >= n_don):
+            raise ValueError(f"{self.name}: donating {n_don} argument(s) needs a "
+                             "tuple output that leads with their new values")
+        leaves = []
+        spec = flatten(out, leaves)
+        in_storage = {b.untyped_storage().data_ptr() for b in self.bufs}
+        dst, src = [], []
+        pos = 0
+        for i, name in enumerate(self.donate_argnames):
+            sub = []
+            flatten(out[i], sub)
+            lo, hi = self.ranges[name]
+            if [(t.shape, t.dtype) for t in sub] != [(b.shape, b.dtype) for b in self.bufs[lo:hi]]:
+                raise ValueError(f"{self.name}: the new {name!r} differs in "
+                                 "structure, shape or dtype from the one passed")
+            for k, t in enumerate(sub):
+                b = self.bufs[lo + k]
+                if not _same_memory(t, b):
+                    dst.append(b)
+                    src.append(t.clone() if t.untyped_storage().data_ptr() in in_storage else t)
+                leaves[pos + k] = b
+            pos += len(sub)
+        _copy(dst, src)
+        return spec, leaves
+
+    def capture(self) -> None:
+        """Warm up, then capture (CUDA); on the CPU the first run."""
+        fn = self.fn
+        saved = read_counters()
+        t0 = time.perf_counter()
+        try:
+            if not self.cuda:
+                before = saved
+                self.out_spec, self.outs = self._donate(fn(**self._args()))
+            else:
+                side = _side_stream(self.dev)
+                side.wait_stream(torch.cuda.current_stream(self.dev))
+                with torch.cuda.stream(side):
+                    fn(**self._args())                     # the warm-up: results dropped
+                torch.cuda.current_stream(self.dev).wait_stream(side)
+                before = read_counters()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side):
+                    self.out_spec, self.outs = self._donate(fn(**self._args()))
+                self.graph = graph
+            self.launches = tuple(a - b for a, b in zip(read_counters(), before))
+        finally:
+            _set_counters(saved)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, leaves: list):
+        self.calls += 1
+        dst, src = [], []
+        for i, t in enumerate(leaves):
+            b = self.bufs[i]
+            if not (t is b or _same_memory(t, b)):
+                dst.append(b)
+                src.append(t)
+        _copy(dst, src)
+        if self.graph is not None:
+            self.graph.replay()
+        elif self.outs is None:
+            self.capture()
+        else:
+            saved = read_counters()
+            try:
+                _, outs = self._donate(self.fn(**self._args()))
+            finally:
+                _set_counters(saved)
+            keep = [(a, b) for a, b in zip(self.outs, outs) if not _same_memory(a, b)]
+            _copy([a for a, _ in keep], [b for _, b in keep])
+        _set_counters(tuple(c + d for c, d in zip(read_counters(), self.launches)))
+        return unflatten(self.out_spec, iter(self.outs))
+
+
+class Program:
+    """``fn`` captured once per key and replayed (see the module docstring).
+    ``static_argnames``: arguments that are part of the key by value (jit's
+    ``static_argnames``); ``donate_argnames``: arguments whose new values lead
+    ``fn``'s output tuple, in that order, and take over their buffers."""
+
+    def __init__(self, fn, static_argnames=(), donate_argnames=()):
+        functools.update_wrapper(self, fn)
+        self.fn = fn
+        self.signature = inspect.signature(fn)
+        self.static_argnames = tuple(static_argnames)
+        self.donate_argnames = tuple(donate_argnames)
+        self.captured: dict = {}
+        _PROGRAMS.add(self)
+
+    def __call__(self, *args, **kwargs):
+        if not graphs_on():
+            return self.fn(*args, **kwargs)
+        bound = self.signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        static = {n: bound.arguments[n] for n in self.static_argnames}
+        leaves, specs, ranges = [], {}, {}
+        for name, value in bound.arguments.items():
+            if name in static:
+                continue
+            lo = len(leaves)
+            specs[name] = flatten(value, leaves)
+            ranges[name] = (lo, len(leaves))
+        if not leaves:
+            raise ValueError(f"{self.__name__}: no tensor input to capture")
+        dev = leaves[0].device
+        if any(t.device != dev for t in leaves):
+            raise ValueError(f"{self.__name__}: every tensor input must be on one device")
+        key = (tuple(static.items()), tuple(specs.items()),
+               tuple((tuple(t.shape), t.dtype, t.device) for t in leaves), _settings())
+        entry = self.captured.get(key)
+        if entry is None:
+            entry = _Captured(self, static, specs, ranges, leaves)
+            if entry.cuda:
+                entry.capture()
+            self.captured[key] = entry
+        return entry(leaves)
+
+
+def graphs_held() -> int:
+    """Captured programs alive (CUDA graphs, or their CPU counterparts)."""
+    return sum(len(p.captured) for p in _PROGRAMS)
+
+
+def calls(program: Program, **static) -> int:
+    """The calls (replays on CUDA) of ``program``'s captured programs whose
+    static arguments include ``static``."""
+    return sum(c.calls for c in program.captured.values()
+               if all(c.static.get(k) == v for k, v in static.items()))
+
+
+def capture_ms() -> list:
+    """The milliseconds each live captured program took to warm up and
+    capture."""
+    return [c.capture_ms for p in _PROGRAMS for c in p.captured.values()]

@@ -234,6 +234,13 @@ def pack_telemetry(tel: FrameTelemetry) -> torch.Tensor:
                       tel.t_cw.to(torch.float32)])
 
 
+def split_telemetry(vec: torch.Tensor) -> FrameTelemetry:
+    """A FrameTelemetry of views into a packed (25,) tensor on its device:
+    float32 scalars, R_cw (3, 3), t_cw (3,)."""
+    k = _TEL_N_SCALARS
+    return FrameTelemetry(*vec[:k], R_cw=vec[k:k + 9].reshape(3, 3), t_cw=vec[k + 9:k + 12])
+
+
 def unpack_telemetry(vec) -> FrameTelemetry:
     """Host inverse of ``pack_telemetry``: a FrameTelemetry of numpy values
     from a (25,) numpy array or CPU tensor."""

@@ -22,6 +22,10 @@ compaction); otherwise the f32 gather fallbacks the reference runs off-TPU.
 The reference's ``.at[].set(mode="drop")`` scatters become explicit masks:
 dropped rows go to a spare row past the end of the table
 (``frontend/tables.scatter_drop``).
+
+``slam_step`` is the eager function; ``make_slam_step`` returns it as a
+captured program (``SlamStep``, one CUDA graph per configuration and shape,
+its state updated in place), as the reference returns its jitted step.
 """
 
 from __future__ import annotations
@@ -57,9 +61,10 @@ from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
 from zenslam_tpu_torch.ops.sift import sift_descriptors
 from zenslam_tpu_torch.pipeline import lines_step as LS
+from zenslam_tpu_torch.pipeline.graphs import Program, flatten, fresh, graphs_on
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
-    frame_generator, pyramid_dtype, resolve_use_kernels)
+    frame_generator, pack_telemetry, pyramid_dtype, resolve_use_kernels)
 
 _I32 = torch.int32
 
@@ -545,9 +550,96 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     return new_state, telem
 
 
-def make_slam_step(cfg: SlamConfig, rig: StereoRig):
+def _step_program(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
+                  noise: CascadeNoise, imu):
+    """The body of the captured step: ``slam_step`` with its noise given,
+    and the telemetry also packed (``pack_telemetry``) inside the program."""
+    new_state, tel = slam_step(cfg, rig, state, img_l, img_r, noise=noise, imu=imu)
+    return new_state, tel, pack_telemetry(tel)
+
+
+def _pnp_width(cfg: SlamConfig) -> int:
+    """The cam0 PnP's width: the keypoints, plus two endpoints a keyline."""
+    return cfg.max_keypoints + (2 * cfg.max_keylines if cfg.use_keylines else 0)
+
+
+class SlamStep:
+    """The per-frame step as a captured program (``pipeline/graphs.py``), the
+    counterpart of the reference's jitted ``slam_step`` with
+    ``donate_argnames=("state",)``: one CUDA graph per (config, rig, image
+    shape, IMU batch shape or none), replayed on every later frame.
+
+    The state is donated: the returned state is the program's own buffers,
+    which the next call overwrites in place. Passed back, it is copied
+    nowhere; a state the caller built or changed (``_replace``) is copied
+    in. A state that the step returned before its latest call has been
+    overwritten by that call, and passing it again raises, as the reference
+    raises on a donated array; a state kept past the next call is copied
+    first (``graphs.fresh``). The telemetry is returned fresh, a copy of the
+    graph's static output that no later call touches.
+
+    The host fields ``rng_seed`` and ``rng_step`` advance on every call, and
+    the frame's RANSAC noise is drawn eagerly from them before the replay,
+    as ``slam_step`` draws it: the draws are the eager form's, bit for bit.
+    Under ``graphs.eager()`` it is ``slam_step``."""
+
+    def __init__(self, cfg: SlamConfig, rig: StereoRig):
+        self.cfg, self.rig = cfg, rig
+        self.program = Program(_step_program, static_argnames=("cfg",),
+                               donate_argnames=("state",))
+        # data_ptr of each buffer of a state this step returned -> that
+        # state's rng_step: a state on these buffers with another rng_step
+        # was returned before the latest call
+        self._issued: dict = {}
+
+    def _buffers(self, state: SlamState) -> list:
+        leaves = []
+        flatten(state, leaves)
+        return [t.data_ptr() for t in leaves if t.numel()]
+
+    def _run(self, state: SlamState, img_l, img_r, noise: CascadeNoise | None = None, imu=None):
+        """One frame: (new state, telemetry, the telemetry packed as
+        ``pack_telemetry`` packs it), the last two the program's static
+        outputs, which the next call overwrites."""
+        cfg = self.cfg
+        dev = img_l.device
+        graphed = graphs_on()
+        if graphed and any(self._issued.get(p, state.rng_step) != state.rng_step
+                           for p in self._buffers(state)):
+            raise RuntimeError(
+                "this state was returned before the step's latest call, which has "
+                "overwritten it in place (the state is donated): copy a state "
+                "(graphs.fresh) to keep it past the next call")
+        if noise is None:
+            noise = draw_cascade_noise(frame_generator(state, dev), cfg.max_keypoints,
+                                       cfg.pnp_iters, cfg.rigid_iters, cfg.essential_iters, dev,
+                                       n_pnp=_pnp_width(cfg))
+        if imu is not None:
+            imu = (*(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in imu[:3]),
+                   torch.as_tensor(imu[3], device=dev).to(torch.bool))
+        new_state, tel, packed = self.program(cfg, self.rig,
+                                              state._replace(rng_seed=0, rng_step=0),
+                                              img_l, img_r, noise, imu)
+        new_state = new_state._replace(rng_seed=state.rng_seed, rng_step=state.rng_step + 1)
+        if graphed:
+            self._issued.update(dict.fromkeys(self._buffers(new_state), new_state.rng_step))
+        return new_state, tel, packed
+
+    def run(self, state: SlamState, img_l, img_r, noise: CascadeNoise | None = None, imu=None):
+        """One frame: (new state, telemetry, the telemetry packed as
+        ``pack_telemetry`` packs it), the telemetry fresh. Arguments as
+        ``slam_step``'s."""
+        new_state, tel, packed = self._run(state, img_l, img_r, noise=noise, imu=imu)
+        return (new_state, *fresh((tel, packed)))
+
+    def __call__(self, state: SlamState, img_l, img_r, noise: CascadeNoise | None = None,
+                 imu=None):
+        """One frame: (new state, fresh telemetry)."""
+        return self.run(state, img_l, img_r, noise=noise, imu=imu)[:2]
+
+
+def make_slam_step(cfg: SlamConfig, rig: StereoRig) -> SlamStep:
     """Close over the config and rig: returns ``step(state, img_l, img_r)``,
-    which is ``slam_step(cfg, rig, state, img_l, img_r)``."""
-    def step(state, img_l, img_r):
-        return slam_step(cfg, rig, state, img_l, img_r)
-    return step
+    the captured ``slam_step(cfg, rig, state, img_l, img_r)`` (``SlamStep``),
+    as the reference returns its jitted step."""
+    return SlamStep(cfg, rig)

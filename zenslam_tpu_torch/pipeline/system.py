@@ -1,9 +1,10 @@
 """The full keyframe SLAM system: the per-frame step plus the live back end —
 counterpart of ``zenslam_tpu/pipeline/system.py``.
 
-  per frame   : slam_step (pipeline/step.py), telemetry packed into one
-                tensor and read by the host, optionally ``telemetry_lag``
-                frames late
+  per frame   : the captured step (pipeline/step.py:SlamStep, its state
+                updated in place), telemetry packed into one tensor inside
+                it and read by the host, optionally ``telemetry_lag`` frames
+                late
   per keyframe: snapshot into the KeyframeDB -> windowed Schur BA over the
                 most recent keyframes -> pose and landmark write-back -> BoW
                 loop-closure query and PnP verification -> on a loop: pose
@@ -11,10 +12,17 @@ counterpart of ``zenslam_tpu/pipeline/system.py``.
                 state; landmark spill to the host archive and frustum reload
 
 Host control flow decides when (keyframe flags from telemetry); the math is
-tensor code on the system's device. Device->host reads that the reference
-starts with ``copy_to_host_async`` start here as copies into pinned memory
-behind a CUDA event (``HostCopy``) and are waited on where they are read;
-``SlamSystem.host_reads`` counts those waits by kind.
+tensor code on the system's device. As in the reference, where each piece is
+one jitted fixed-shape program, the step, the windowed BA (dense and CG),
+the loop gate and the relocalisation gate run on CUDA as captured programs
+(``pipeline/graphs.py``: one CUDA graph per static arguments and shapes,
+replayed); the sharded BA, the snapshots, the pose graph and vocabulary
+training run eagerly. ``graphs.eager()`` runs everything eagerly.
+
+Device->host reads that the reference starts with ``copy_to_host_async``
+start here as copies into pinned memory behind a CUDA event (``HostCopy``)
+and are waited on where they are read; ``SlamSystem.host_reads`` counts
+those waits by kind.
 
 Randomness is injected: ``process_frame`` takes the front end's
 ``CascadeNoise`` and ``_keyframe_backend`` a ``BackendDraws``; without them
@@ -50,10 +58,10 @@ from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse
 from zenslam_tpu_torch.ops.match import lsh_binarize, match_descriptors
 from zenslam_tpu_torch.parallel.dist_ba import (
     dist_bundle_adjust, make_ba_mesh, shard_ba_problem_device)
+from zenslam_tpu_torch.pipeline.graphs import Program, fresh
 from zenslam_tpu_torch.pipeline.state import (
-    MotionModel, SlamConfig, SlamState, init_state, pack_telemetry, resolve_device,
-    unpack_telemetry)
-from zenslam_tpu_torch.pipeline.step import slam_step
+    MotionModel, SlamConfig, SlamState, init_state, resolve_device, unpack_telemetry)
+from zenslam_tpu_torch.pipeline.step import SlamStep
 
 LOOP_PNP_ITERS = 128  # RANSAC hypotheses per loop / reloc candidate
 
@@ -113,7 +121,8 @@ def _binary_codes(cfg: SlamConfig, desc):
 class HostCopy:
     """A device->host copy started now and read later. On CUDA the tensor is
     copied into pinned memory behind an event, and ``numpy()`` waits on that
-    event only; on the CPU it holds the tensor."""
+    event only; on the CPU it holds a copy (the tensor may be a captured
+    program's static output, which the next call overwrites)."""
 
     def __init__(self, t: torch.Tensor):
         if t.device.type == "cuda":
@@ -122,7 +131,7 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._buf, self._event = t, None
+            self._buf, self._event = t.clone(), None
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
@@ -132,8 +141,8 @@ class HostCopy:
 
 class KfSnap(NamedTuple):
     """Copies of everything the keyframe back end reads from a frame's state
-    (the next ``slam_step`` keeps the unchanged fields' tensors, so a
-    snapshot must not alias them)."""
+    (the next step overwrites the state's buffers in place, so a snapshot
+    must not alias them)."""
 
     R_cw: torch.Tensor
     t_cw: torch.Tensor
@@ -196,6 +205,7 @@ class SlamSystem:
     _pending_loop: Optional[tuple] = None              # (HostCopy, kf_slot, frame_idx)
     _pending_spill: Optional[HostCopy] = None
     _pg_delta: Optional[tuple] = None                  # (R_old, t_old, R_new, t_new)
+    step: Optional[SlamStep] = None                    # the captured step, made on first use
 
 
 def bow_n_words(bcfg: BackendConfig) -> int:
@@ -258,8 +268,8 @@ def _apply_pose_correction(state: SlamState, R_old, t_old, R_new, t_new) -> Slam
     return state._replace(R_cw=R_cur, t_cw=t_cur)
 
 
-def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig,
-                 W: int, solver: str, iterations: int, mesh=None):
+def _windowed_ba_body(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig,
+                      W: int, solver: str, iterations: int, mesh=None):
     """The windowed BA step (the reference's ``_windowed_ba_jit``): compact
     to the W newest keyframes and to the landmarks they reference (at most
     4N, rounded up to a shard multiple for ``solver="dist"``, which shards
@@ -313,6 +323,22 @@ def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig
     n_dropped = (p.obs_valid & ~obs_ok).sum().to(torch.float32)
     rmse = torch.stack([res["rmse_before"], res["rmse_after"], n_dropped])
     return new_R, new_t, new_xyz, R_cur, t_cur, rmse
+
+
+_WINDOWED_BA = Program(_windowed_ba_body, static_argnames=("W", "solver", "iterations", "mesh"))
+
+
+def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig,
+                 W: int, solver: str, iterations: int, mesh=None):
+    """``_windowed_ba_body`` as one captured program per (W, solver,
+    iterations, shapes) for the dense and CG solvers, as the reference jits
+    it; ``solver="dist"`` runs eagerly. Returns fresh tensors (R, t, lmap
+    xyz, R_cur, t_cur, [rmse_before, rmse_after, n_dropped_obs])."""
+    if solver == "dist":
+        return _windowed_ba_body(db, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig, W=W,
+                                 solver=solver, iterations=iterations, mesh=mesh)
+    return fresh(_WINDOWED_BA(db, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig, W=W,
+                              solver=solver, iterations=iterations))
 
 
 @functools.lru_cache(maxsize=4)
@@ -401,19 +427,20 @@ def _verify_candidates(db: KeyframeDB, cur_desc, cur_valid, cur_xy, slots, K_lef
     return corr_ok.sum(-1), r["n_inliers"], r["R"], r["t"]
 
 
-def _loop_query_verify(vocab, bow_db, db: KeyframeDB, kf_slot: int, frame_idx: int, K_left,
-                       min_frame_gap: int, pnp_threshold: float, noise, top_k: int = 3):
+def _loop_query_verify_body(vocab, bow_db, db: KeyframeDB, kf_slot, frame_idx, K_left,
+                            min_frame_gap: int, pnp_threshold: float, noise, top_k: int = 3):
     """The loop gate: BoW histogram of the keyframe -> TF-IDF query ->
     per-candidate match + PnP + measured edge T_new_old = T_pnp ∘ T_old⁻¹,
-    and the keyframe's histogram added to the database. Returns (new bow
-    db, one packed vector [scores, frames, slots, n_corr, n_inl, R (k·9),
-    t (k·3)])."""
-    hist = descriptors_to_bow(vocab, db.kp_desc[kf_slot], db.kp_valid[kf_slot])
+    and the keyframe's histogram added to the database. ``kf_slot`` and
+    ``frame_idx`` are 0-d device tensors. Returns (new bow db, one packed
+    vector [scores, frames, slots, n_corr, n_inl, R (k·9), t (k·3)])."""
+    row = kf_slot.reshape(1).long()
+    desc, valid, xy = (x.index_select(0, row)[0] for x in (db.kp_desc, db.kp_valid, db.kp_xy))
+    hist = descriptors_to_bow(vocab, desc, valid)
     scores, frames, slots = bow_db_query(bow_db, hist, frame_idx, min_frame_gap=min_frame_gap,
                                          top_k=top_k)
     new_bow_db = bow_db_add(bow_db, hist, frame_idx)
-    n_corr, n_inl, R, t = _verify_candidates(db, db.kp_desc[kf_slot], db.kp_valid[kf_slot],
-                                             db.kp_xy[kf_slot], slots, K_left, pnp_threshold,
+    n_corr, n_inl, R, t = _verify_candidates(db, desc, valid, xy, slots, K_left, pnp_threshold,
                                              noise)
     Ri, ti = se3_inverse(db.R[slots], db.t[slots])
     Rm, tm = se3_compose(R, t, Ri, ti)
@@ -423,8 +450,25 @@ def _loop_query_verify(vocab, bow_db, db: KeyframeDB, kf_slot: int, frame_idx: i
     return new_bow_db, packed
 
 
-def _reloc_query(vocab, bow_db, db: KeyframeDB, cur_desc, cur_valid, cur_xy, K_left,
-                 pnp_threshold: float, noise, top_k: int = 3):
+_LOOP_GATE = Program(_loop_query_verify_body,
+                     static_argnames=("min_frame_gap", "pnp_threshold", "top_k"))
+
+
+def _loop_query_verify(vocab, bow_db, db: KeyframeDB, kf_slot: int, frame_idx: int, K_left,
+                       min_frame_gap: int, pnp_threshold: float, noise, top_k: int = 3):
+    """The loop gate as one captured program (the reference's jitted
+    ``_loop_query_verify``); ``kf_slot`` and ``frame_idx`` reach it as 0-d
+    device tensors, so each replay takes this call's. Returns fresh (new bow
+    db, packed verdict)."""
+    dev = db.R.device
+    slot = torch.full((), kf_slot, dtype=torch.int64, device=dev)
+    fidx = torch.full((), frame_idx, dtype=torch.int32, device=dev)
+    return fresh(_LOOP_GATE(vocab, bow_db, db, slot, fidx, K_left, min_frame_gap=min_frame_gap,
+                            pnp_threshold=pnp_threshold, noise=noise, top_k=top_k))
+
+
+def _reloc_query_body(vocab, bow_db, db: KeyframeDB, cur_desc, cur_valid, cur_xy, K_left,
+                      pnp_threshold: float, noise, top_k: int = 3):
     """The relocalisation gate: the loop gate's arbiter pointed at the live
     frame, with no temporal exclusion. Returns [scores(k), slots(k),
     n_inl(k), R(k·9), t(k·3)]."""
@@ -434,6 +478,17 @@ def _reloc_query(vocab, bow_db, db: KeyframeDB, cur_desc, cur_valid, cur_xy, K_l
                                         pnp_threshold, noise)
     f32 = torch.float32
     return torch.cat([scores, slots.to(f32), n_inl.to(f32), R.reshape(-1), t.reshape(-1)])
+
+
+_RELOC_GATE = Program(_reloc_query_body, static_argnames=("pnp_threshold", "top_k"))
+
+
+def _reloc_query(vocab, bow_db, db: KeyframeDB, cur_desc, cur_valid, cur_xy, K_left,
+                 pnp_threshold: float, noise, top_k: int = 3):
+    """The relocalisation gate as one captured program (the reference's
+    ``_reloc_query_jit``). Returns a fresh packed verdict."""
+    return fresh(_RELOC_GATE(vocab, bow_db, db, cur_desc, cur_valid, cur_xy, K_left,
+                             pnp_threshold=pnp_threshold, noise=noise, top_k=top_k))
 
 
 def _gate_noise(seed: int, top_k: int, n: int, device):
@@ -605,8 +660,10 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
     t0 = time.time()
     img_l = torch.as_tensor(img_l, dtype=torch.float32, device=sys.device)
     img_r = torch.as_tensor(img_r, dtype=torch.float32, device=sys.device)
-    sys.state, tel = slam_step(sys.cfg, sys.rig, sys.state, img_l, img_r, noise=noise, imu=imu)
-    packed = HostCopy(pack_telemetry(tel))
+    if sys.step is None:
+        sys.step = SlamStep(sys.cfg, sys.rig)
+    sys.state, _, packed = sys.step._run(sys.state, img_l, img_r, noise=noise, imu=imu)
+    packed = HostCopy(packed)
     sys.n_frames += 1
     L = sys.bcfg.telemetry_lag
     if L > 0:

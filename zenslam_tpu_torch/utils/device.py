@@ -17,11 +17,24 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+_CONSTANTS: dict = {}
+
+
 def upload_constant(a, device) -> torch.Tensor:
-    """A copy of the host array or CPU tensor ``a`` on ``device``. A copy to
-    a CUDA device goes from pinned memory without blocking, so it does not
-    synchronise (the pinned block is not reused before the copy has run)."""
+    """The host array or CPU tensor ``a`` on ``device``, uploaded once per
+    (value, device) and cached: every later call with an equal value returns
+    the same tensor, which callers must not modify. A captured program
+    (``pipeline/graphs.py``) thus reads the cached tensor, never a pinned
+    host block freed after its capture. The upload to a CUDA device goes
+    from pinned memory without blocking, so it does not synchronise."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    dev = torch.device(device)
+    key = (str(dev), t.dtype, tuple(t.shape), t.contiguous().numpy().tobytes())
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        if dev.type == "cuda":
+            hit = t.pin_memory().to(dev, non_blocking=True)
+        else:
+            hit = t.to(dev, copy=True)
+        _CONSTANTS[key] = hit
+    return hit
