@@ -72,8 +72,10 @@ Phases (each one fatal on failure):
    LK + 1 ORB launches per timed frame, >= 8 keyframes (the vocabulary
    retrain at 8 runs), a BA run on every keyframe after the first, each
    with rmse_after <= 1.05 rmse_before and no dropped observations,
-   pose_ok >= 0.9 and ATE < 0.05 m, and no implicit synchronise in the
-   files of ROADMAP Queue 3 A's table (the step's 22 a frame before); float
+   pose_ok >= 0.9 and ATE < 0.05 m, no implicit synchronise in the
+   files of ROADMAP Queue 3 A's table (the step's 22 a frame before) and
+   none in the keyframe back end (the retrain's 2 before its archive
+   sample went up from pinned memory); float
    scatter-adds and BA's planned sums repeated 20 times (the planned ones
    bit-identical each time and to ``index_add_`` on the CPU). Two untimed
    repeats of the run's first REPEAT_FRAMES frames (one as it is, one
@@ -108,11 +110,22 @@ Phases (each one fatal on failure):
    launches a frame counted through the replays, and the device time of
    the state's copy into its buffers; (b) the system phase's 80 frames
    through ``process_frame`` eager then graphed: the same keyframes, BA
-   runs, loop verdicts, poses and keyframe database, with ms/frame and the
-   median ``backend_ms`` of each; (c) one CG window (``ba_window`` 24) on
-   (b)'s last inputs, with host ms; (d) the loop orbit with loops on: the
-   same loops. Where two eager runs part, graphed is held within their
-   spread and the outputs are named;
+   runs, loop verdicts, poses, keyframe database, edges, archive,
+   vocabulary and BoW database, with ms/frame, the median ``backend_ms``
+   and each back-end phase's median of each, and each system program's
+   calls over the graphed run (``graphs.calls``) equal to the run's work:
+   a snapshot a frame, an insert and a spill pack a keyframe, a window a
+   BA run, a pose graph a loop, one first vocabulary and a retrain each
+   later train; (c) one CG window (``ba_window`` 24) on (b)'s last inputs,
+   with host ms, and the vocabulary's first train and retrain on (b)'s
+   database eager, captured and replayed, with host ms; (d) the loop orbit
+   with loops on: the same loops and program calls, then the epoch
+   correction of two ring entries graphed against eager; (e) the first
+   SPILL_FRAMES frames of the reference's slot-pressure orbit
+   (``tests/test_map_spill.py``, a 384-slot map): more than 200 spills and
+   some reloads, as that test asks, the reload program called;
+   then every program's capture ms. Where two eager runs part, graphed is
+   held within their spread and the outputs are named;
 8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
    448x336 orbit, frames 80-95 skipped, run up to frame KIDNAP_END; the
    test runs on to 111) for the port alone, relocalisation
@@ -226,11 +239,14 @@ Phases (each one fatal on failure):
    rmse_before with no dropped observation, frame and keyframe poses within
    5e-2 of the dense run's, ATE < 0.05 m, pose_ok >= 0.9, 2 LK + 1 ORB
    launches per timed frame, no implicit synchronise in ``parallel/`` or
-   on the lines of ``system._windowed_ba``; the
-   route drops (read after the run), median ``backend_ms`` and
-   ``ba_dispatch`` beside the dense run's, peak memory, and what one
-   windowed BA costs on the last keyframe's inputs, dense and at 1 and 8
-   shards (``torch.profiler`` kernels and busy ms, host ms); (c) the dry
+   on the lines of ``system._windowed_ba``; each run graphed (the window
+   a captured program, its all-reduces inside the graph, one call a BA
+   run) bit-identical to the same frames under ``graphs.eager()``; the
+   route drops (read after the run, on the eager form), median
+   ``backend_ms`` and ``ba_dispatch`` beside the dense run's and the
+   eager run's, peak memory, and what one windowed BA costs on the last
+   keyframe's inputs, dense and at 1 and 8 shards, eager and graphed
+   (``torch.profiler`` kernels and busy ms, host ms); (c) the dry
    run's stage 3, the 64-frame 320x240 orbit (seed 21) with BA and loop
    closure, dense and at 1 and 8 shards: >= 3 BA runs and >= 1 loop each,
    the 1-shard run's poses within 5e-2 of the dense run's, the 8-shard
@@ -353,6 +369,7 @@ REPEATS = 5          # timed repeats per turn
 DEVICE_CALLS = 50    # wrapper calls captured in one CUDA graph
 COST_ROUNDS = 5      # step_cost: alternating rounds of host timing
 PROFILE_FRAMES = 3   # graphs phase: frames under torch.profiler, eager and graphed
+SPILL_FRAMES = 16    # graphs phase: frames of the slot-pressure orbit (it reloads from frame 6)
 
 
 class PhaseError(RuntimeError):
@@ -1369,6 +1386,8 @@ def phase_system(dev):
     require(ok_share >= 0.9, f"system: pose_ok on {ok_share:.3f} < 0.9 of frames")
     require(ate < 0.05, f"system: ATE {ate:.4f} m >= 0.05 m")
     require(not left, f"system: implicit synchronises left on Queue 3 A's lines {dict(left)}")
+    require(nb == 0, f"system: {nb} implicit synchronises in the keyframe back end "
+                     f"({dict(back)}); its programs upload from pinned memory")
     dense = {"R": R, "t": tt, "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
              "kf_t": s.kf_db.t.cpu().numpy(), "kf_valid": s.kf_db.valid.cpu().numpy(),
              "n_keyframes": s.n_keyframes, "n_ba_runs": s.n_ba_runs, "backend_ms": backend,
@@ -1405,7 +1424,7 @@ def timed_system_run(s, seq) -> dict:
     timed_rows = infos[rec["n_warmup_rows"]:]
     R = np.stack([t.R_cw for t in tels])
     tt = np.stack([t.t_cw for t in tels])
-    return {"launches": rec["launches"], "dt": dt, "R": R, "t": tt,
+    return {"launches": rec["launches"], "dt": dt, "R": R, "t": tt, "tels": tels,
             "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
             "pose_ok": float(np.array([float(t.pose_ok) for t in tels])[1:].mean()),
             "ate": ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw)),
@@ -2885,18 +2904,12 @@ def dist_solver_alone(dev) -> None:
 
 
 @contextlib.contextmanager
-def routed_drops(system_module, drops: list, windows: list):
-    """Inside the block, append to ``drops`` the route-drop count (a device
-    tensor, unread) of every live dist BA, and to ``windows`` the
-    (arguments, keyword arguments, outputs) of every ``_windowed_ba`` call."""
+def recorded_windows(system_module, windows: list):
+    """Inside the block, append to ``windows`` the (arguments, keyword
+    arguments, outputs) of every ``_windowed_ba`` call."""
     from zenslam_tpu_torch.pipeline.graphs import fresh
 
-    route, window = system_module.shard_ba_problem_device, system_module._windowed_ba
-
-    def routed(*args, **kwargs):
-        ps, n = route(*args, **kwargs)
-        drops.append(n)
-        return ps, n
+    window = system_module._windowed_ba
 
     def windowed(*args, **kwargs):
         kept = fresh(args)     # the step's state is its buffers, overwritten by the next frame
@@ -2904,13 +2917,37 @@ def routed_drops(system_module, drops: list, windows: list):
         windows.append((kept, kwargs, out))
         return out
 
-    system_module.shard_ba_problem_device = routed
     system_module._windowed_ba = windowed
     try:
         yield
     finally:
-        system_module.shard_ba_problem_device = route
         system_module._windowed_ba = window
+
+
+def route_drops(windows: list) -> int:
+    """The route-drop count summed over the recorded dist windows, read
+    after the run: each window again under ``graphs.eager()`` (a replay
+    calls no Python, so the router's count is caught on the eager form,
+    which the graphed run equals bit for bit)."""
+    import torch
+
+    from zenslam_tpu_torch.pipeline import system
+
+    route, drops = system.shard_ba_problem_device, []
+
+    def routed(*args, **kwargs):
+        ps, n = route(*args, **kwargs)
+        drops.append(n)
+        return ps, n
+
+    system.shard_ba_problem_device = routed
+    try:
+        for args, kwargs, _ in windows:
+            if kwargs.get("solver") == "dist":
+                eager_call(functools.partial(system._windowed_ba_body, *args, **kwargs))
+    finally:
+        system.shard_ba_problem_device = route
+    return int(torch.stack(drops).sum()) if drops else 0
 
 
 def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
@@ -2923,23 +2960,42 @@ def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
     from zenslam_tpu_torch.pipeline import system
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system
 
-    s = create_system(SlamConfig(), BackendConfig(telemetry_lag=3, ba_solver="dist",
-                                                  dist_devices=n_shards), seq.rig, (SIZE, SIZE))
-    drops, windows = [], []
-    with routed_drops(system, drops, windows):
+    bcfg = BackendConfig(telemetry_lag=3, ba_solver="dist", dist_devices=n_shards)
+    s = create_system(SlamConfig(), bcfg, seq.rig, (SIZE, SIZE))
+    windows = []
+    calls0 = program_calls(s)
+    with recorded_windows(system, windows):
         run = timed_system_run(s, seq)
+    replays = since_calls(calls0, s)
     launches, dt, R, tt, is_kf, pose_ok, ate, runs, backend, dispatch, records = (
         run[k] for k in ("launches", "dt", "R", "t", "is_kf", "pose_ok", "ate", "runs",
                          "backend_ms", "ba_dispatch", "records"))
     n = SYSTEM_FRAMES - SYSTEM_WARMUP
-    n_drop = int(torch.stack(drops).sum()) if drops else 0
+    n_drop = route_drops(windows)
+    # the same frames with every program eager: the graphed run must equal it
+    e_out, e_ms, _, _, e_x = graphed_system(seq, s.device, False, bcfg=bcfg)
+    held_to_eager(tag, f"ba_solver dist, {n_shards or 1} shard(s), {SYSTEM_FRAMES} frames",
+                  e_out, system_outputs(s, run["tels"]),
+                  lambda: graphed_system(seq, s.device, False, bcfg=bcfg)[0])
+    from zenslam_tpu_torch.pipeline import graphs
+
+    mesh = system._live_ba_mesh(n_shards, s.device)
+    captures = [round(c.capture_ms, 1) for c in system._WINDOWED_BA.captured.values()
+                if c.static.get("mesh") is mesh]
+    print(f"[{tag}] graphed / eager: {dt / n * 1e3:.2f} ms/frame ({n} timed frames) / "
+          f"{e_ms:.2f} ({SYSTEM_FRAMES} frames); ba_dispatch median "
+          f"{float(np.median(dispatch)):.3f} / {float(np.median(e_x['phases']['ba_dispatch'])):.3f}"
+          f" ms; the dist window's calls over the graphed run {replays['ba']} "
+          f"({graphs.calls(system._WINDOWED_BA, solver='dist', mesh=mesh)} over the process), "
+          f"its capture {captures} ms")
+    require(replays["ba"] == s.n_ba_runs,
+            f"{tag}: {replays['ba']} dist window calls for {s.n_ba_runs} BA runs")
     kf_t, kf_v = s.kf_db.t.cpu().numpy(), s.kf_db.valid.cpu().numpy()
     both = kf_v & dense["kf_valid"]
     d_frames = float(np.abs(tt - dense["t"]).max())
     d_kf = float(np.abs(kf_t[both] - dense["kf_t"][both]).max())
     in_parallel = window_syncs(records, f"{os.sep}parallel{os.sep}")
     n_sync = len(sync_sites(records))
-    mesh = system._live_ba_mesh(n_shards, s.device)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"[{tag}] ba_solver dist, {mesh.n_shards} shard(s): {n} frames {dt / n * 1e3:.2f} "
           f"ms/frame, peak {peak:.1f} MiB; keyframes {s.n_keyframes} (dense "
@@ -2983,13 +3039,13 @@ def loop_run(seq, cfg, solver: str, n_shards: int = 8) -> tuple:
                        dist_devices=n_shards, bow_branch=32, bow_top_k=5, bow_min_score=0.20,
                        bow_min_frame_gap=15, loop_min_inliers=12)
     s = create_system(cfg, bc, seq.rig, (240, 320))
-    drops, windows = [], []
+    windows = []
     reset_launches()
-    with routed_drops(system, drops, windows):
+    with recorded_windows(system, windows):
         tel, _ = run_system(s, seq.left, seq.right)
     torch.cuda.synchronize()
     launches = read_launches()
-    return tel.t_cw, s, launches, int(torch.stack(drops).sum()) if drops else 0, windows
+    return tel.t_cw, s, launches, route_drops(windows), windows
 
 
 def loop_gap(a, b) -> tuple:
@@ -3081,8 +3137,9 @@ def window_witness(dense_windows: list, dist_windows: list, dev) -> None:
     try:
         eager_call(functools.partial(system._windowed_ba, *args,
                                      **dict(kwargs, solver="dense", mesh=None)))
-        system._windowed_ba(*args, **dict(kwargs, solver="dist",
-                                          mesh=system._live_ba_mesh(8, dev)))
+        eager_call(functools.partial(system._windowed_ba, *args,
+                                     **dict(kwargs, solver="dist",
+                                            mesh=system._live_ba_mesh(8, dev))))
     finally:
         system.bundle_adjust, system.dist_bundle_adjust = solvers
     pd, (ps8, (mesh,)) = caught["dense"][0], caught["dist8"]
@@ -3201,9 +3258,10 @@ def phase_dist(seq, dev, dense: dict) -> dict:
     windows = {"dense": dict(kw, solver="dense", mesh=None)}
     for n in (1, 8):
         windows[f"dist{n}"] = dict(kw, mesh=system._live_ba_mesh(n, dev))
-    steps = {k: functools.partial(system._windowed_ba, *a, **v) for k, v in windows.items()}
-    steps["dense"] = functools.partial(eager_call, steps["dense"])   # eager, as dist runs
-    steps["dense graphed"] = functools.partial(system._windowed_ba, *a, **windows["dense"])
+    steps = {k: functools.partial(eager_call, functools.partial(system._windowed_ba, *a, **v))
+             for k, v in windows.items()}
+    steps.update({f"{k} graphed": functools.partial(system._windowed_ba, *a, **v)
+                  for k, v in windows.items()})
     cost, by_op = step_cost(steps)
     print(f"[dist] one windowed BA (the last keyframe's inputs, {kw['iterations']} LM steps) on "
           f"{card_line()}: " + "; ".join(
@@ -3292,14 +3350,14 @@ def held_to_eager(tag: str, what: str, e1: dict, g: dict, again) -> None:
     outputs within the spread of the two eager runs, naming them."""
     off = parted(e1, g)
     if not off:
-        print(f"[graphs] {what}: graphed bit-identical to eager ({len(e1)} outputs)")
+        print(f"[{tag}] {what}: graphed bit-identical to eager ({len(e1)} outputs)")
         return
     e2 = again()
     spread = {k: float(np.max(np.abs(_f64(e2[k]) - _f64(e1[k])), initial=0.0))
               for k in off if np.shape(e1[k]) == np.shape(e2[k])}
     gap = {k: float(np.max(np.abs(_f64(g[k]) - _f64(e1[k])), initial=0.0))
            for k in off if np.shape(e1[k]) == np.shape(g[k])}
-    print(f"[graphs] {what}: graphed parts from eager on {off}; two eager runs part on "
+    print(f"[{tag}] {what}: graphed parts from eager on {off}; two eager runs part on "
           f"{parted(e1, e2)}; max |graphed - eager| {gap}, eager's own spread {spread}")
     require(all(k in spread and k in gap and gap[k] <= spread[k] for k in off),
             f"{tag}: graphed outside eager's own spread on {off}")
@@ -3385,22 +3443,93 @@ def profiled_frames(step, state, seq, first: int, n: int, graphed: bool) -> tupl
 
 def system_outputs(s, tels) -> dict:
     """What ``[graphs]`` holds two system runs to: every frame's pose and
-    keyframe flag, the keyframe database, the BA runs and the loop verdicts."""
+    keyframe flag, the keyframe database, the BA runs, the loop verdicts,
+    the pose-graph edges, the archive, the vocabulary and the BoW
+    database."""
     out = {"R": np.stack([t.R_cw for t in tels]), "t": np.stack([t.t_cw for t in tels]),
            "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
-           "counts": np.array([s.n_keyframes, s.n_ba_runs, s.n_loop_closures, s.n_relocs]),
+           "counts": np.array([s.n_keyframes, s.n_ba_runs, s.n_loop_closures, s.n_relocs,
+                               s.n_vocab_trains, len(s.edge_i)]),
            "loop_scores": np.array([d["score"] for d in s.loop_debug], np.float64),
-           "loop_fired": np.array([d["fired"] for d in s.loop_debug])}
+           "loop_fired": np.array([d["fired"] for d in s.loop_debug]),
+           "edges": np.array([s.edge_i, s.edge_j, s.edge_w], np.float64).reshape(3, -1)}
     for k, a in zip(s.kf_db._fields, tree_tensors(s.kf_db)):
         out[f"kf_db.{k}"] = a
+    for k, a in zip(s.bow_db._fields, tree_tensors(s.bow_db)):
+        out[f"bow_db.{k}"] = a
+    for i, a in enumerate(tree_tensors(s.vocab)):
+        out[f"vocab.{i}"] = a
+    for name in ("edge_R", "edge_t"):
+        for i, a in enumerate(tree_tensors(getattr(s, name))):
+            out[f"{name}.{i}"] = a
+    if s.archive is not None:
+        a = s.archive
+        out.update({"archive.xyz": a.xyz, "archive.desc": a.desc, "archive.dormant": a.dormant,
+                    "archive.counts": np.array([a.n_reloads, a.n_spills])})
     return out
+
+
+def keyframe_programs(s) -> dict:
+    """The system's captured programs by name: the shared ones, and the
+    snapshot and epoch programs of system ``s`` (None until ``s`` makes
+    them)."""
+    from zenslam_tpu_torch.pipeline import system
+
+    own = s.snap_programs
+    return {"snapshot": own and own.snapshot, "epoch": own and own.epoch,
+            "kf_add": system._KF_ADD, "ba": system._WINDOWED_BA, "loop_gate": system._LOOP_GATE,
+            "reloc_gate": system._RELOC_GATE, "pose_graph": system._POSE_GRAPH,
+            "spill_pack": system._PACK_LIVE, "reload": system._RELOAD,
+            "vocab": system._VOCAB, "retrain": system._RETRAIN}
+
+
+def program_calls(s) -> dict:
+    """Each program's calls so far (replays on the card, ``graphs.calls``),
+    the snapshot and epoch programs ``s``'s own."""
+    from zenslam_tpu_torch.pipeline import graphs
+
+    return {k: 0 if prog is None else graphs.calls(prog)
+            for k, prog in keyframe_programs(s).items()}
+
+
+def since_calls(before: dict, s) -> dict:
+    return {k: v - before[k] for k, v in program_calls(s).items()}
+
+
+def held_program_calls(tag: str, s, calls: dict, frames: int) -> None:
+    """Print each system program's calls over a graphed run of ``frames``
+    frames and require them to match the work the run did: a snapshot a
+    frame (with ``telemetry_lag``; else one a keyframe) and one a reloc
+    attempt, an insert and a spill pack a keyframe, a BA window a BA run, a
+    pose graph a loop, one first vocabulary and a retrain a later train,
+    and a reload whenever the archive reloaded rows."""
+    b = s.bcfg
+    want = {"snapshot": (frames if b.telemetry_lag else s.n_keyframes) + len(s.reloc_debug),
+            "kf_add": s.n_keyframes, "ba": s.n_ba_runs, "pose_graph": s.n_loop_closures,
+            "spill_pack": s.n_keyframes if b.enable_map_spill else 0,
+            "vocab": min(s.n_vocab_trains, 1), "retrain": max(s.n_vocab_trains - 1, 0)}
+    print(f"[{tag}] program calls over the graphed run (replays; graphs.calls): {calls}; "
+          f"archive reloads {s.archive.n_reloads}, relocs {s.n_relocs}")
+    off = {k: (calls[k], v) for k, v in want.items() if calls[k] != v}
+    require(not off, f"{tag}: program calls (made, expected) {off}")
+    require(s.archive.n_reloads == 0 or calls["reload"] > 0,
+            f"{tag}: no reload program call for {s.archive.n_reloads} reloaded rows")
+
+
+PHASES = ("kf_add", "resolve", "loop_issue", "spill_pack", "spill_resolve", "ba_dispatch")
+
+
+def phase_line(phases: dict) -> str:
+    return ", ".join(f"{k} {float(np.median(phases[k])):.3f}" for k in PHASES if k in phases)
 
 
 def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE, SIZE),
                    cfg=None) -> tuple:
     """A system run over ``frames`` frames through ``process_frame`` and
     ``flush_pipeline`` (graphed, or under ``graphs.eager()``): (outputs,
-    host ms/frame up to a synchronise, median ``backend_ms``, the system)."""
+    host ms/frame up to a synchronise, median ``backend_ms``, the system,
+    {"phases": each back-end phase's host ms per keyframe, "calls": each
+    program's calls over the run})."""
     import torch
 
     from zenslam_tpu_torch.pipeline import SlamConfig
@@ -3412,6 +3541,7 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
     s = create_system(cfg or SlamConfig(), bcfg or BackendConfig(telemetry_lag=3), seq.rig,
                       shape, device=dev)
     tels, backend = [], []
+    calls0 = program_calls(s)
     with contextlib.nullcontext() if graphed else eager():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3424,7 +3554,71 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
             tels.append(tel)
         if info["backend_ms"] > 0:
             backend.append(info["backend_ms"])
-    return system_outputs(s, tels), ms, float(np.median(backend)), s
+    phases = {}
+    for _, info in rows:
+        for k, v in info.get("phases", {}).items():
+            phases.setdefault(k, []).append(v)
+    return (system_outputs(s, tels), ms, float(np.median(backend)), s,
+            {"phases": phases, "calls": since_calls(calls0, s)})
+
+
+@functools.lru_cache(maxsize=None)
+def spill_orbit(dev):
+    """``tests/test_map_spill.py``'s slot-pressure orbit: 36 frames of
+    320x240 (seed 21, radius 1.0, host render)."""
+    from zenslam_tpu_torch.io.synthetic import make_sequence
+
+    return make_sequence(np.random.default_rng(21), n_frames=36, width=320, height=240,
+                         motion="orbit", orbit_radius=1.0, device=dev)
+
+
+def epoch_once(s) -> None:
+    """The epoch correction, which the runs above reach only when a loop
+    fires before their last keyframes: ``s``'s last keyframe snapshot
+    carried by the change between its two newest keyframes' poses, through
+    two ring entries graphed (twice each) and eager, bit-identical."""
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.pipeline.graphs import fresh
+
+    db, snap = s.kf_db, s.last_kf_snap
+    s._pg_delta = tuple(fresh((db.R[0], db.t[0], db.R[1], db.t[1])))
+    for frame in (8, 9):
+        want = eager_call(lambda: system._epoch_correct(s, snap, frame))
+        got = [fresh(system._epoch_correct(s, snap, frame)) for _ in range(2)]
+        require(all(not parted(dict(enumerate(tree_tensors(want))),
+                               dict(enumerate(tree_tensors(g)))) for g in got),
+                f"graphs: the epoch correction of ring entry {frame % 4} parts from eager")
+    print(f"[graphs] epoch correction, ring entries 0 and 1: graphed bit-identical to eager; "
+          f"calls {program_calls(s)['epoch']}")
+
+
+def vocab_once(s) -> None:
+    """The vocabulary programs, which run once a system (the first train)
+    or rarely (a retrain), on ``s``'s keyframe database: host ms of one
+    call eager, its capture's ms, and one replay, up to a synchronise."""
+    import torch
+
+    from zenslam_tpu_torch.backend.bow import GeneratorDraw
+    from zenslam_tpu_torch.pipeline import system
+
+    db = s.kf_db
+    slot = s.last_kf_slot
+    calls = {"first train": lambda: system._train_vocab(s.bcfg, db.kp_desc[slot],
+                                                        db.kp_valid[slot],
+                                                        GeneratorDraw(7, s.device)),
+             "retrain": lambda: system._retrain_vocab(s)}
+    progs = {"first train": system._VOCAB, "retrain": system._RETRAIN}
+    for name, fn in calls.items():
+        ms = {}
+        for how in ("eager", "replay"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager_call(fn) if how == "eager" else fn()
+            torch.cuda.synchronize()
+            ms[how] = (time.perf_counter() - t0) * 1e3
+        print(f"[graphs] vocabulary {name}: eager {ms['eager']:.2f} ms, replay {ms['replay']:.2f} "
+              f"ms (host, up to a synchronise); captures "
+              f"{[round(c.capture_ms, 1) for c in progs[name].captured.values()]} ms")
 
 
 def phase_graphs(seq, dev) -> dict:
@@ -3500,14 +3694,20 @@ def phase_graphs(seq, dev) -> dict:
             f"graphs: slice launches {launches} != 2 LK + 1 ORB a frame over two graphed runs")
 
     # (b) the 80-frame system: eager, graphed
-    e_sys, e_ms, e_back, _ = graphed_system(seq, dev, False)
-    g_sys, g_ms, g_back, gs = graphed_system(seq, dev, True)
+    e_sys, e_ms, e_back, _, e_x = graphed_system(seq, dev, False)
+    g_sys, g_ms, g_back, gs, g_x = graphed_system(seq, dev, True)
     held_to_eager("graphs", f"system {SYSTEM_FRAMES} frames (keyframes, BA runs, loop "
-                            "verdicts, poses, keyframe database)", e_sys, g_sys,
+                            "verdicts, poses, keyframe database, edges, archive, vocabulary, "
+                            "BoW database)", e_sys, g_sys,
                   lambda: graphed_system(seq, dev, False)[0])
-    print(f"[graphs] system eager / graphed: {e_ms:.2f} / {g_ms:.2f} ms/frame, backend_ms "
-          f"median {e_back:.2f} / {g_back:.2f}; keyframes {gs.n_keyframes}, BA runs "
-          f"{gs.n_ba_runs}, loop gates {len(gs.loop_debug)}; {card}")
+    print(f"[graphs] system eager / graphed: {e_ms:.2f} / {g_ms:.2f} ms/frame (22.19-22.59 "
+          f"graphed on an H100 80GB HBM3 at 700 W with the keyframe path eager), backend_ms "
+          f"median {e_back:.2f} / {g_back:.2f}; keyframes "
+          f"{gs.n_keyframes}, BA runs {gs.n_ba_runs}, vocabulary trains {gs.n_vocab_trains}, "
+          f"loop gates {len(gs.loop_debug)}; {card}")
+    print(f"[graphs] system phase medians, host ms a keyframe, eager: {phase_line(e_x['phases'])}"
+          f"; graphed: {phase_line(g_x['phases'])}")
+    held_program_calls("graphs", gs, g_x["calls"], SYSTEM_FRAMES)
 
     # (c) one CG window on the graphed system's last inputs
     lm = gs.state.lmap
@@ -3531,6 +3731,7 @@ def phase_graphs(seq, dev) -> dict:
                             f"{int(gs.kf_db.valid.sum())} keyframes)", we, wg,
                   lambda: window(False)[0])
     print(f"[graphs] CG window host ms eager / graphed: {we_ms:.2f} / {wg_ms:.2f} (median of 3)")
+    vocab_once(gs)
 
     # (d) the loop orbit, loops on ([loop]'s configs)
     orbit = loop_orbit(dev)
@@ -3540,13 +3741,43 @@ def phase_graphs(seq, dev) -> dict:
                        bow_top_k=5, bow_min_score=0.20, bow_min_frame_gap=15,
                        loop_min_inliers=12)
     lo = dict(bcfg=lb, frames=64, shape=(240, 320), cfg=lcfg)
-    g_loop, gl_ms, _, gl = graphed_system(orbit, dev, True, **lo)
-    e_loop, el_ms, _, _ = graphed_system(orbit, dev, False, **lo)
+    g_loop, gl_ms, gl_back, gl, gl_x = graphed_system(orbit, dev, True, **lo)
+    e_loop, el_ms, el_back, _, el_x = graphed_system(orbit, dev, False, **lo)
     held_to_eager("graphs", "loop orbit (64 frames, loops on)", e_loop, g_loop,
                   lambda: graphed_system(orbit, dev, False, **lo)[0])
-    print(f"[graphs] loop orbit graphed / eager: {gl_ms:.2f} / {el_ms:.2f} ms/frame, loops "
-          f"{gl.n_loop_closures} at frames {[d['frame'] for d in gl.loop_debug if d['fired']]}")
+    print(f"[graphs] loop orbit graphed / eager: {gl_ms:.2f} / {el_ms:.2f} ms/frame, backend_ms "
+          f"median {gl_back:.2f} / {el_back:.2f}, loops {gl.n_loop_closures} at frames "
+          f"{[d['frame'] for d in gl.loop_debug if d['fired']]}")
+    print(f"[graphs] loop orbit phase medians, host ms a keyframe, eager: "
+          f"{phase_line(el_x['phases'])}; graphed: {phase_line(gl_x['phases'])}")
     require(gl.n_loop_closures >= 1, "graphs: no loop closed on the graphed orbit")
+    held_program_calls("graphs: loop orbit", gl, gl_x["calls"], 64)
+    epoch_once(gs)
+
+    # (e) the reference's slot-pressure orbit (tests/test_map_spill.py:
+    # TestOrbitSlotPressure), where recycled landmarks are spilled and
+    # reloaded: its first SPILL_FRAMES frames, past the test's bars
+    sp = dict(bcfg=BackendConfig(ba_every_kf=False, enable_loop_closure=False,
+                                 enable_map_spill=True, spill_reload_max=128),
+              frames=SPILL_FRAMES, shape=(240, 320),
+              cfg=SlamConfig(max_keypoints=256, max_landmarks=384, pnp_iters=128,
+                             rigid_iters=128, kf_min_frames=2))
+    g_sp, gs_ms, _, gsp, gsp_x = graphed_system(spill_orbit(dev), dev, True, **sp)
+    e_sp, es_ms, _, _, _ = graphed_system(spill_orbit(dev), dev, False, **sp)
+    held_to_eager("graphs", f"slot-pressure orbit ({SPILL_FRAMES} frames, spill and reload)",
+                  e_sp, g_sp,
+                  lambda: graphed_system(spill_orbit(dev), dev, False, **sp)[0])
+    a = gsp.archive
+    print(f"[graphs] slot-pressure orbit graphed / eager: {gs_ms:.2f} / {es_ms:.2f} ms/frame; "
+          f"spills {a.n_spills}, reloads {a.n_reloads}, archive {len(a)} rows; phase medians "
+          f"graphed: {phase_line(gsp_x['phases'])}")
+    require(a.n_spills > 200 and a.n_reloads > 0,
+            f"graphs: the slot-pressure orbit spilled {a.n_spills} and reloaded {a.n_reloads}")
+    held_program_calls("graphs: slot-pressure orbit", gsp, gsp_x["calls"], SPILL_FRAMES)
+    for name, prog in keyframe_programs(gs).items():
+        print(f"[graphs] captures of {name} (warm-up + capture, ms, one a key; the snapshot "
+              f"and epoch programs (b)'s system's): "
+              f"{[round(c.capture_ms, 1) for c in prog.captured.values()]}")
     print(f"[graphs] graphs held {graphs.graphs_held()}; phase {time.perf_counter() - t0:.1f} s")
     return launches
 

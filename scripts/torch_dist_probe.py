@@ -151,7 +151,7 @@ def orbit(dev, window_at=None, reference=False) -> None:
     import torch
 
     from zenslam_tpu_torch.io.synthetic import make_sequence
-    from zenslam_tpu_torch.pipeline import SlamConfig, system
+    from zenslam_tpu_torch.pipeline import SlamConfig, eager, system
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system, run_system
 
     seq = make_sequence(np.random.default_rng(21), n_frames=64, width=320, height=240,
@@ -209,12 +209,16 @@ def orbit(dev, window_at=None, reference=False) -> None:
     system.dist_bundle_adjust = catch("dist", solvers[1])
     outs = {}
     try:
-        for name, kw in (("dense", dict(kwargs, solver="dense", mesh=None)),
-                         ("dist1", dict(kwargs, solver="dist", mesh=system._live_ba_mesh(1, dv))),
-                         ("dist8", dict(kwargs, solver="dist", mesh=system._live_ba_mesh(8, dv)))):
-            outs[name] = window(*args, **kw)
-            if name != "dense":
-                caught[name] = caught.pop("dist")
+        # eagerly: a captured window's replay calls no Python, so nothing is caught
+        with eager():
+            for name, kw in (("dense", dict(kwargs, solver="dense", mesh=None)),
+                             ("dist1", dict(kwargs, solver="dist",
+                                            mesh=system._live_ba_mesh(1, dv))),
+                             ("dist8", dict(kwargs, solver="dist",
+                                            mesh=system._live_ba_mesh(8, dv)))):
+                outs[name] = window(*args, **kw)
+                if name != "dense":
+                    caught[name] = caught.pop("dist")
     finally:
         system.bundle_adjust, system.dist_bundle_adjust = solvers
     for name in ("dist1", "dist8"):

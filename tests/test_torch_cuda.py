@@ -389,7 +389,7 @@ def test_cg_ba_on_card_matches_cpu_without_syncs(dev, kw):
 
 def _recording_draw(seed):
     """A CPU ``draw`` that keeps what it drew, and one that replays it on a device."""
-    draw, seen = bow.generator_draw(seed, "cpu"), []
+    draw, seen = bow.GeneratorDraw(seed, "cpu"), []
 
     def record(level, weight, n, iters):
         seen.append(draw(level, weight, n, iters))

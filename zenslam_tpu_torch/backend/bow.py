@@ -8,8 +8,9 @@ histogram matrix, so a query scores every stored frame with one product.
 
 Randomness is injected: k-means takes its seed and re-seed row indices as
 ``KmeansDraws``, produced by a ``draw(level, weight, n_words, iters)``
-callable (``level`` is "flat", "l1" or "l2"). ``generator_draw`` makes one
-from a seeded ``torch.Generator``; a test hands in the reference's draws.
+callable (``level`` is "flat", "l1" or "l2"). ``GeneratorDraw`` makes one
+from a seeded ``torch.Generator``, which a captured program seeds afresh
+on every call; a test hands in the reference's draws.
 All Hamming distances here are small integers, exact in f32, so quantisation
 and centres do not depend on the order of the sums.
 """
@@ -46,21 +47,39 @@ class KmeansDraws(NamedTuple):
     reseeds: torch.Tensor  # (..., iters, n_words) re-seeds of empty clusters, per step
 
 
-def generator_draw(seed: int, device) -> Callable:
-    """A ``draw`` callable backed by a ``torch.Generator`` seeded by ``seed``."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
+class GeneratorDraw:
+    """A ``draw`` callable backed by a ``torch.Generator`` seeded by ``seed``
+    on ``device``. Equal (and hashing alike) when seed and device are, so a
+    captured program keys on the value; through a program
+    (``pipeline/graphs.py``) every call draws from the generator seeded
+    afresh (``seeded_generators``), as a new ``GeneratorDraw`` would."""
 
-    def draw(level: str, weight, n_words: int, iters: int) -> KmeansDraws:
+    def __init__(self, seed: int, device):
+        self.seed, self.device = int(seed), torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+    def _key(self) -> tuple:
+        return self.seed, str(self.device)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, GeneratorDraw) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def seeded_generators(self) -> list:
+        return [(self.generator, self.seed)]
+
+    def __call__(self, level: str, weight, n_words: int, iters: int) -> KmeansDraws:
         lead = weight.shape[:-1]
         w2 = weight.reshape(-1, weight.shape[-1])
         ok = w2 > 0
         probs = torch.where(ok.any(-1, keepdim=True), ok.to(torch.float32), 1.0)
-        idx = torch.multinomial(probs, (iters + 1) * n_words, replacement=True, generator=g)
+        idx = torch.multinomial(probs, (iters + 1) * n_words, replacement=True,
+                                generator=self.generator)
         idx = idx.reshape(lead + (iters + 1, n_words))
         return KmeansDraws(seeds=idx[..., 0, :], reseeds=idx[..., 1:, :])
-
-    return draw
 
 
 def _hamming_to_centers(bits, centers):
@@ -98,7 +117,7 @@ def build_vocabulary(descriptors, valid, n_words: int = 256, iters: int = 8,
     (n_words, 256) float codebook."""
     bits = unpack_bits(descriptors)
     w = valid.to(torch.float32)
-    draw = draw or generator_draw(0, bits.device)
+    draw = draw or GeneratorDraw(0, bits.device)
     return _kmeans_bits(bits, w, n_words, iters, draw("flat", w, n_words, iters))
 
 
@@ -109,7 +128,7 @@ def build_vocabulary_tree(descriptors, valid, branch: int = 64, iters: int = 6,
     k-means per cell, all cells at once."""
     bits = unpack_bits(descriptors)
     w = valid.to(torch.float32)
-    draw = draw or generator_draw(0, bits.device)
+    draw = draw or GeneratorDraw(0, bits.device)
     l1 = _kmeans_bits(bits, w, branch, iters, draw("l1", w, branch, iters))
     d = torch.where(valid[:, None], _hamming_to_centers(bits, l1), float("inf"))
     a1 = torch.argmin(d, dim=1)

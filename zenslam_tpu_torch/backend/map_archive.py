@@ -10,7 +10,10 @@ front end's LRU allocator, with fresh generations.
 
 The archive is host numpy with the reference's dtypes (uint32 descriptor
 words, float32 for the SIFT family);
-it is this package's own copy of that host code.
+it is this package's own copy of that host code. A reload's candidates go
+up in one pinned block of ``reload_max`` rows and its outcome comes back
+through a pinned copy behind an event, so it does not synchronise; the
+system runs its insert (``_reload_body``) as a captured program.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from zenslam_tpu_torch.frontend.tables import allocate_landmark_slots, scatter_drop
+from zenslam_tpu_torch.utils.device import HostCopy, upload
 
 
 def reload_into_map(lmap, xyz, desc, valid, frame_idx, color=None, protect_recent: int = 2):
@@ -40,6 +44,27 @@ def reload_into_map(lmap, xyz, desc, valid, frame_idx, color=None, protect_recen
         generation=scatter_drop(lmap.generation, sl, 1, accumulate=True),
         color=scatter_drop(lmap.color, sl, color))
     return lmap, slot, placed
+
+
+def _reload_body(lmap, cand):
+    """``reload_into_map`` on a packed candidate block: ``cand`` is int32
+    [frame index, then (R, 5 + D) rows of xyz, colour and the valid flag as
+    f32 bit patterns and the descriptor (int32 words, or a float family's
+    f32 bit patterns)]. Returns (new lmap, [slot (R), placed (R), new
+    generation (R)] as f32)."""
+    f32 = torch.float32
+    rows = cand[1:].reshape(-1, 5 + lmap.desc[0].numel())
+    R = rows.shape[0]
+    meta = rows[:, :5].view(f32)
+    desc = rows[:, 5:]
+    if lmap.desc.is_floating_point():
+        desc = desc.view(f32)
+    desc = desc.reshape((R,) + lmap.desc.shape[1:])
+    new_lmap, slot, placed = reload_into_map(lmap, meta[:, :3], desc, meta[:, 4] > 0.5, cand[0],
+                                             color=meta[:, 3])
+    aux = torch.cat([slot.to(f32), placed.to(f32),
+                     new_lmap.generation[slot.clamp(min=0)].to(f32)])
+    return new_lmap, aux
 
 
 def _pack_live(lmap) -> torch.Tensor:
@@ -143,16 +168,19 @@ class LandmarkArchive:
             self._slot_gen[new_slots] = gen[new_slots]
 
     def reload(self, lmap, R_cw, t_cw, cam, frame_idx, reload_max: int = 128,
-               radius: float = 50.0, margin: float = 0.0):
+               radius: float = 50.0, margin: float = 0.0, insert=_reload_body):
         """Frustum-gated reload of dormant landmarks near the current pose,
         nearest first. Returns the updated LandmarkMap (the same object when
-        nothing is reloaded). ``cam`` is the left PinholeCamera."""
+        nothing is reloaded). ``cam`` is the left PinholeCamera. ``insert``
+        runs the insert as ``_reload_body`` does (the system passes its
+        captured program, returning tensors of its own)."""
         if not self.dormant.any():
             return lmap
         rows = np.nonzero(self.dormant)[0]
         X = self.xyz[rows]
-        R = R_cw.detach().cpu().numpy().astype(np.float32)
-        t = t_cw.detach().cpu().numpy().astype(np.float32)
+        pose = HostCopy(torch.cat([R_cw.detach().reshape(9), t_cw.detach().reshape(3)])).numpy()
+        R = pose[:9].reshape(3, 3).astype(np.float32)
+        t = pose[9:].astype(np.float32)
         xc = X @ R.T + t
         z = xc[:, 2]
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -169,23 +197,21 @@ class LandmarkArchive:
         cand = cand[order][:reload_max]
 
         K = reload_max
-        pad = K - len(cand)
-        dev = lmap.xyz.device
-        xyz_b = np.concatenate([self.xyz[cand], np.zeros((pad, 3), np.float32)])
-        desc_b = np.concatenate([self.desc[cand],
-                                 np.zeros((pad,) + self.desc.shape[1:], self.desc.dtype)])
-        col_b = np.concatenate([self.color[cand], np.zeros(pad, np.float32)])
-        valid_b = np.concatenate([np.ones(len(cand), bool), np.zeros(pad, bool)])
-        new_lmap, slot, placed = reload_into_map(
-            lmap, torch.from_numpy(xyz_b).to(dev),
-            torch.from_numpy(desc_b.view(np.int32) if desc_b.dtype == np.uint32
-                             else desc_b).to(dev),
-            torch.from_numpy(valid_b).to(dev),
-            torch.full((), int(frame_idx), dtype=torch.int32, device=dev),
-            color=torch.from_numpy(col_b).to(dev))
+        n = len(cand)
+        # one pinned block of reload_max rows: [frame index, then per row xyz,
+        # colour, valid (f32 bits) and the descriptor words]
+        D = int(np.prod(self.desc.shape[1:]))
+        block = np.zeros(1 + K * (5 + D), np.int32)
+        block[0] = int(frame_idx)
+        rows_b = block[1:].reshape(K, 5 + D)
+        meta = rows_b[:, :5].view(np.float32)
+        meta[:n, :3] = self.xyz[cand]
+        meta[:n, 3] = self.color[cand]
+        meta[:n, 4] = 1.0
+        rows_b[:n, 5:] = self.desc[cand].reshape(n, D).view(np.int32)
+        new_lmap, aux = insert(lmap, upload(block, lmap.xyz.device))
         # one fetch for the insert outcome (slot, placed, new generation)
-        aux = torch.cat([slot.to(torch.float32), placed.to(torch.float32),
-                         new_lmap.generation[slot.clamp(min=0)].to(torch.float32)]).cpu().numpy()
+        aux = HostCopy(aux).numpy()
         slot_np = aux[:K].astype(np.int64)
         placed_np = aux[K:2 * K] > 0.5
         gen_np = aux[2 * K:].astype(np.int64)

@@ -38,8 +38,8 @@ from zenslam_tpu_torch.ops.lk import ragged_level_sizes
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, LandmarkMap, Line3dMap, LineTable, MotionModel, SlamConfig, SlamState,
     VioState, init_vio)
-from zenslam_tpu_torch.pipeline.system import (
-    BackendConfig, HostCopy, KfSnap, SlamSystem)
+from zenslam_tpu_torch.pipeline.system import BackendConfig, KfSnap, SlamSystem
+from zenslam_tpu_torch.utils.device import HostCopy
 
 
 def config_from_dict(d) -> SlamConfig:

@@ -187,7 +187,8 @@ def load_system(path: str, cfg, bcfg, rig, image_shape, seed: int = 0, device=No
     (default CUDA, raising when absent). ``cfg``, ``bcfg`` and ``rig`` must be
     the saved run's: static configuration is not serialised."""
     from zenslam_tpu_torch.backend.bow import Vocabulary
-    from zenslam_tpu_torch.pipeline.system import HostCopy, _kf_snapshot, create_system
+    from zenslam_tpu_torch.pipeline.system import _kf_snapshot, create_system
+    from zenslam_tpu_torch.utils.device import HostCopy
 
     system = create_system(cfg, bcfg, rig, image_shape, seed=seed, device=device)
     dev = system.device

@@ -1,6 +1,8 @@
 """Captured programs — the counterpart of ``jax.jit(fn, static_argnames=...,
 donate_argnames=...)`` as the reference applies it to ``slam_step``, the
-windowed BA and the loop and relocalisation gates.
+windowed BA (dense, CG and sharded), the loop and relocalisation gates and
+the keyframe path's smaller programs (``pipeline/system.py``,
+``backend/map_archive.py``).
 
 On CUDA a ``Program`` captures its function into a CUDA graph once for each
 combination of its static arguments, of its inputs' structure, non-tensor
@@ -27,6 +29,16 @@ that graph on every later call:
   ``orb_steered_brief.launches``) count Python calls, which a replay does
   not make: the capture records each counter's increase and every call adds
   it. The warm-up and the capture themselves count nothing.
+- Random draws: a static argument with a ``seeded_generators()`` method
+  (``backend/bow.py:GeneratorDraw``) names ``torch.Generator``s and their
+  seeds. Each is seeded afresh before every run of the function (the
+  warm-up, the capture, every replay, every CPU run and every call under
+  ``eager()``), so each call draws what a freshly seeded generator draws,
+  bit for bit; a capture registers each with its graph, whose replays
+  read the generator's seed and offset as they stand at the replay.
+- A collective (``torch.distributed.all_reduce`` on a one-rank NCCL group)
+  is captured as any kernel is: the warm-up call creates the
+  communicator before the capture.
 
 On the CPU the same buffer logic runs the function on the buffers instead
 of replaying a graph, so the CPU tests exercise it.
@@ -145,6 +157,18 @@ def _side_stream(dev: torch.device):
     return _SIDE_STREAMS[dev]
 
 
+def _generators(static: dict) -> list:
+    """The (generator, seed) pairs that the static arguments draw from (see
+    the module docstring)."""
+    return [pair for v in static.values() if hasattr(v, "seeded_generators")
+            for pair in v.seeded_generators()]
+
+
+def _reseed(pairs: list) -> None:
+    for g, seed in pairs:
+        g.manual_seed(seed)
+
+
 def _settings() -> tuple:
     """The global settings that choose kernels: part of every key, as a
     changed flag makes jit trace anew."""
@@ -165,6 +189,7 @@ class _Captured:
         self.static, self.specs, self.ranges = static, specs, ranges
         self.dev = leaves[0].device
         self.cuda = self.dev.type == "cuda"
+        self.generators = _generators(static)
         self.bufs = [t.detach().clone() for t in leaves]
         self.graph = None
         self.out_spec = None
@@ -214,6 +239,7 @@ class _Captured:
         saved = read_counters()
         t0 = time.perf_counter()
         try:
+            _reseed(self.generators)
             if not self.cuda:
                 before = saved
                 self.out_spec, self.outs = self._donate(fn(**self._args()))
@@ -225,6 +251,9 @@ class _Captured:
                 torch.cuda.current_stream(self.dev).wait_stream(side)
                 before = read_counters()
                 graph = torch.cuda.CUDAGraph()
+                for g, _ in self.generators:
+                    graph.register_generator_state(g)
+                _reseed(self.generators)
                 with torch.cuda.graph(graph, stream=side):
                     self.out_spec, self.outs = self._donate(fn(**self._args()))
                 self.graph = graph
@@ -243,10 +272,12 @@ class _Captured:
                 src.append(t)
         _copy(dst, src)
         if self.graph is not None:
+            _reseed(self.generators)
             self.graph.replay()
         elif self.outs is None:
             self.capture()
         else:
+            _reseed(self.generators)
             saved = read_counters()
             try:
                 _, outs = self._donate(self.fn(**self._args()))
@@ -274,11 +305,12 @@ class Program:
         _PROGRAMS.add(self)
 
     def __call__(self, *args, **kwargs):
-        if not graphs_on():
-            return self.fn(*args, **kwargs)
         bound = self.signature.bind(*args, **kwargs)
         bound.apply_defaults()
         static = {n: bound.arguments[n] for n in self.static_argnames}
+        if not graphs_on():
+            _reseed(_generators(static))
+            return self.fn(*args, **kwargs)
         leaves, specs, ranges = [], {}, {}
         for name, value in bound.arguments.items():
             if name in static:

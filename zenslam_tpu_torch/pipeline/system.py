@@ -13,23 +13,36 @@ counterpart of ``zenslam_tpu/pipeline/system.py``.
 
 Host control flow decides when (keyframe flags from telemetry); the math is
 tensor code on the system's device. As in the reference, where each piece is
-one jitted fixed-shape program, the step, the windowed BA (dense and CG),
-the loop gate and the relocalisation gate run on CUDA as captured programs
-(``pipeline/graphs.py``: one CUDA graph per static arguments and shapes,
-replayed); the sharded BA, the snapshots, the pose graph and vocabulary
-training run eagerly. ``graphs.eager()`` runs everything eagerly.
+one jitted fixed-shape program, every piece runs on CUDA as a captured
+program (``pipeline/graphs.py``: one CUDA graph per static arguments and
+shapes, replayed): the step, the keyframe snapshot (a ring of
+``telemetry_lag + 1`` programs, one per queued frame, and one for immediate
+use) and its epoch correction, the keyframe insert with its odometry edge,
+the windowed BA (dense, CG and sharded), the loop and relocalisation gates,
+the pose graph with the correction it carries to the database, the live
+pose and the map, the spill's packing, the archive's reload
+(``backend/map_archive.py``) and vocabulary training and retraining with
+the re-quantisation. The programs whose outputs a system keeps past their
+next call (the step's state, the queued snapshots) are the system's own,
+made on first use; the others are shared, and what a caller keeps of them
+is copied (``fresh``). What stays eager is host work: the frustum gate and
+the archive's upserts (numpy), the decisions, stacking the pose-graph
+edges, and ``slam_step`` itself (the function the tests hold every program
+to). ``graphs.eager()`` runs everything eagerly.
 
 Device->host reads that the reference starts with ``copy_to_host_async``
 start here as copies into pinned memory behind a CUDA event (``HostCopy``)
 and are waited on where they are read; ``SlamSystem.host_reads`` counts
-those waits by kind.
+those waits by kind. Host values go up through pinned memory
+(``utils/device.py:upload``), so the keyframe path does not synchronise.
 
 Randomness is injected: ``process_frame`` takes the front end's
 ``CascadeNoise`` and ``_keyframe_backend`` a ``BackendDraws``; without them
 each draw comes from a ``torch.Generator`` seeded by the integer the
 reference seeds its key with (13 and 7 for the vocabulary, ``frame_idx*16``
-for the loop gate, ``n_frames`` for relocalisation). The archive sample of a
-vocabulary retrain keeps the reference's numpy draw.
+for the loop gate, ``n_frames`` for relocalisation); a captured vocabulary
+training seeds its generator afresh on every call (``GeneratorDraw``). The
+archive sample of a vocabulary retrain keeps the reference's numpy draw.
 """
 
 from __future__ import annotations
@@ -45,11 +58,11 @@ import torch
 
 from zenslam_tpu_torch.backend.ba import ba_cost, bundle_adjust, bundle_adjust_cg
 from zenslam_tpu_torch.backend.bow import (
-    BowDatabase, bow_db_add, bow_db_init, bow_db_query, build_vocabulary,
-    build_vocabulary_tree, descriptors_to_bow, generator_draw, load_vocabulary)
+    BowDatabase, GeneratorDraw, bow_db_add, bow_db_init, bow_db_query, build_vocabulary,
+    build_vocabulary_tree, descriptors_to_bow, load_vocabulary)
 from zenslam_tpu_torch.backend.keyframes import (
     KeyframeDB, ba_problem_from_db, kf_db_add, kf_db_init, newest_first)
-from zenslam_tpu_torch.backend.map_archive import LandmarkArchive, _pack_live
+from zenslam_tpu_torch.backend.map_archive import LandmarkArchive, _pack_live, _reload_body
 from zenslam_tpu_torch.backend.pose_graph import PoseGraph, optimize_pose_graph
 from zenslam_tpu_torch.estimation.pnp import solve_pnp_ransac
 from zenslam_tpu_torch.estimation.ransac import gumbel
@@ -62,8 +75,10 @@ from zenslam_tpu_torch.pipeline.graphs import Program, fresh
 from zenslam_tpu_torch.pipeline.state import (
     MotionModel, SlamConfig, SlamState, init_state, resolve_device, unpack_telemetry)
 from zenslam_tpu_torch.pipeline.step import SlamStep
+from zenslam_tpu_torch.utils.device import HostCopy, upload
 
 LOOP_PNP_ITERS = 128  # RANSAC hypotheses per loop / reloc candidate
+NOW = -1              # the snapshot ring's entry for a snapshot used at once
 
 
 @dataclass
@@ -118,27 +133,6 @@ def _binary_codes(cfg: SlamConfig, desc):
     return lsh_binarize(desc) if cfg.descriptor == "sift" else desc
 
 
-class HostCopy:
-    """A device->host copy started now and read later. On CUDA the tensor is
-    copied into pinned memory behind an event, and ``numpy()`` waits on that
-    event only; on the CPU it holds a copy (the tensor may be a captured
-    program's static output, which the next call overwrites)."""
-
-    def __init__(self, t: torch.Tensor):
-        if t.device.type == "cuda":
-            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._buf.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._buf, self._event = t.clone(), None
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._buf.numpy()
-
-
 class KfSnap(NamedTuple):
     """Copies of everything the keyframe back end reads from a frame's state
     (the next step overwrites the state's buffers in place, so a snapshot
@@ -180,7 +174,7 @@ class SlamSystem:
     device: torch.device = torch.device("cpu")
     archive: object = None
     vocab: object = None
-    # pose-graph edges: host lists, tensors stacked when the graph runs
+    # pose-graph edges (measurements as device tensors)
     edge_i: list = field(default_factory=list)
     edge_j: list = field(default_factory=list)
     edge_R: list = field(default_factory=list)
@@ -206,6 +200,7 @@ class SlamSystem:
     _pending_spill: Optional[HostCopy] = None
     _pg_delta: Optional[tuple] = None                  # (R_old, t_old, R_new, t_new)
     step: Optional[SlamStep] = None                    # the captured step, made on first use
+    snap_programs: Optional["SnapPrograms"] = None     # made on first use (``_snap_programs``)
 
 
 def bow_n_words(bcfg: BackendConfig) -> int:
@@ -213,10 +208,25 @@ def bow_n_words(bcfg: BackendConfig) -> int:
     return bcfg.bow_branch ** 2 if bcfg.bow_levels == 2 else bcfg.bow_words
 
 
+def _vocab_body(desc, valid, levels: int, branch: int, words: int, draw: Callable):
+    """The configured vocabulary over packed descriptors (the reference's
+    jitted ``build_vocabulary_tree`` / ``build_vocabulary``)."""
+    if levels == 2:
+        return build_vocabulary_tree(desc, valid, branch=branch, iters=6, draw=draw)
+    return build_vocabulary(desc, valid, n_words=words, iters=6, draw=draw)
+
+
+_VOCAB = Program(_vocab_body, static_argnames=("levels", "branch", "words", "draw"))
+
+
+def _vocab_shape(bcfg: BackendConfig) -> dict:
+    return dict(levels=bcfg.bow_levels, branch=bcfg.bow_branch, words=bcfg.bow_words)
+
+
 def _train_vocab(bcfg: BackendConfig, desc, valid, draw: Callable):
-    if bcfg.bow_levels == 2:
-        return build_vocabulary_tree(desc, valid, branch=bcfg.bow_branch, iters=6, draw=draw)
-    return build_vocabulary(desc, valid, n_words=bcfg.bow_words, iters=6, draw=draw)
+    """The first vocabulary, trained on one keyframe's descriptors as one
+    captured program; fresh."""
+    return fresh(_VOCAB(desc, valid, draw=draw, **_vocab_shape(bcfg)))
 
 
 def create_system(cfg: SlamConfig, bcfg: BackendConfig, rig: StereoRig, image_shape,
@@ -237,27 +247,115 @@ def create_system(cfg: SlamConfig, bcfg: BackendConfig, rig: StereoRig, image_sh
     return sys
 
 
-def _kf_snapshot(state: SlamState) -> KfSnap:
-    f = state.features
+def _snapshot_body(R_cw, t_cw, f, generation, xyz, slot: int = NOW) -> KfSnap:
+    """The keyframe snapshot of a frame's pose, feature table and the map
+    rows it references. ``slot`` (static) names the snapshot ring's entry:
+    each is a captured program of its own, whose outputs the next call of
+    that entry (of the same system) overwrites."""
     lm_clip = f.lm_idx.clamp(min=0).long()
     return KfSnap(
-        R_cw=state.R_cw.clone(), t_cw=state.t_cw.clone(), xy=f.xy.clone(),
+        R_cw=R_cw.clone(), t_cw=t_cw.clone(), xy=f.xy.clone(),
         uv_r=f.uv_r.clone(), stereo_ok=f.stereo_ok.clone(), desc=f.desc.clone(),
         lm_idx=f.lm_idx.clone(), valid=f.valid.clone(),
-        kp_lm_gen=torch.where(f.lm_idx >= 0, state.lmap.generation[lm_clip], -1).to(torch.int32),
-        kp_xyz=state.lmap.xyz[lm_clip], track_id=f.track_id.clone())
+        kp_lm_gen=torch.where(f.lm_idx >= 0, generation[lm_clip], -1).to(torch.int32),
+        kp_xyz=xyz[lm_clip], track_id=f.track_id.clone())
 
 
-def _epoch_correct_snap(snap: KfSnap, R_old, t_old, R_new, t_new) -> KfSnap:
+def _kf_snapshot(state: SlamState) -> KfSnap:
+    """The snapshot (the reference's ``_kf_snapshot``), as plain PyTorch."""
+    return _snapshot_body(state.R_cw, state.t_cw, state.features, state.lmap.generation,
+                          state.lmap.xyz)
+
+
+def _snapshot(sys: SlamSystem, slot: int) -> KfSnap:
+    """The live state's snapshot as ring entry ``slot``'s captured program:
+    a queued frame's entry is its frame index mod ``telemetry_lag + 1``, so
+    the entry is called again only after the frame has left the queue;
+    ``NOW`` is for a snapshot used at once."""
+    st = sys.state
+    return _snap_programs(sys).snapshot(st.R_cw, st.t_cw, st.features, st.lmap.generation,
+                                        st.lmap.xyz, slot=slot)
+
+
+def _ring_slot(sys: SlamSystem, frame_idx: int) -> int:
+    L = sys.bcfg.telemetry_lag
+    return frame_idx % (L + 1) if L > 0 else NOW
+
+
+def _epoch_correct_snap(snap: KfSnap, R_old, t_old, R_new, t_new, slot: int = NOW) -> KfSnap:
     """Carry a snapshot taken before a pose-graph correction into the
     corrected epoch: pose left-composed with T_new ∘ T_old⁻¹, landmark
-    positions fixed in the camera frame (X' = R_newᵀ(R_old X + t_old − t_new))."""
+    positions fixed in the camera frame (X' = R_newᵀ(R_old X + t_old − t_new)).
+    ``slot`` (static) is the snapshot's ring entry, as in ``_snapshot_body``."""
     Ri, ti = se3_inverse(R_old, t_old)
     Rp, tp = se3_compose(R_new, t_new, Ri, ti)
     R2, t2 = se3_compose(Rp, tp, snap.R_cw, snap.t_cw)
     Rw = R_new.T @ R_old
     tw = R_new.T @ (t_old - t_new)
     return snap._replace(R_cw=R2, t_cw=t2, kp_xyz=snap.kp_xyz @ Rw.T + tw)
+
+
+class SnapPrograms(NamedTuple):
+    """A system's own snapshot and epoch-correction programs: their outputs
+    wait in the telemetry queue while later frames call the programs again,
+    so two systems must not share them (as each has its own step)."""
+
+    snapshot: Program
+    epoch: Program
+
+
+def _snap_programs(sys: SlamSystem) -> SnapPrograms:
+    if sys.snap_programs is None:
+        sys.snap_programs = SnapPrograms(Program(_snapshot_body, static_argnames=("slot",)),
+                                         Program(_epoch_correct_snap, static_argnames=("slot",)))
+    return sys.snap_programs
+
+
+def _epoch_correct(sys: SlamSystem, snap: KfSnap, frame_idx: int) -> KfSnap:
+    """``snap`` (of frame ``frame_idx``) carried into the epoch of the last
+    pose graph, by its ring entry's captured program."""
+    return _snap_programs(sys).epoch(snap, *sys._pg_delta, slot=_ring_slot(sys, frame_idx))
+
+
+def _kf_add_body(db: KeyframeDB, snap: KfSnap, kf_desc, ints, has_prev: bool):
+    """The keyframe insert (the reference's jitted ``kf_db_add``) and, with
+    ``has_prev``, the odometry edge to the previous keyframe, T_new ∘
+    T_prev⁻¹. ``ints`` = [frame index, previous slot] on the device.
+    Returns (new database[, edge R, edge t])."""
+    db = kf_db_add(db, snap.R_cw, snap.t_cw, snap.xy, snap.lm_idx,
+                   snap.valid & (snap.lm_idx >= 0), kf_desc, ints[0].to(torch.int32),
+                   kp_uvr=snap.uv_r, kp_stereo=snap.stereo_ok, kp_lm_gen=snap.kp_lm_gen,
+                   kp_xyz=snap.kp_xyz)
+    if not has_prev:
+        return (db,)
+    prev = ints[1:2]
+    Ri, ti = se3_inverse(db.R.index_select(0, prev)[0], db.t.index_select(0, prev)[0])
+    Rm, tm = se3_compose(snap.R_cw, snap.t_cw, Ri, ti)
+    return db, Rm, tm
+
+
+_KF_ADD = Program(_kf_add_body, static_argnames=("has_prev",))
+
+
+def _kf_add(sys: SlamSystem, snap: KfSnap, kf_desc, frame_idx: int, slot: int,
+            prev_slot: int) -> None:
+    """Insert the keyframe at ``slot`` and, unless ``prev_slot`` is
+    negative, append the odometry edge to it, through one captured program
+    (its outputs fresh: a caller may keep the previous database)."""
+    has_prev = prev_slot >= 0
+    ints = upload(np.array([frame_idx, max(prev_slot, 0)], np.int64), sys.device)
+    sys.kf_db, *edge = fresh(_KF_ADD(sys.kf_db, snap, kf_desc, ints, has_prev=has_prev))
+    if has_prev:
+        _append_edge(sys, slot, prev_slot, *edge, 1.0)
+
+
+def _append_edge(sys: SlamSystem, i: int, j: int, R, t, w: float) -> None:
+    """Append the edge i -> j with its measurement (device tensors) and weight."""
+    sys.edge_i.append(i)
+    sys.edge_j.append(j)
+    sys.edge_R.append(R)
+    sys.edge_t.append(t)
+    sys.edge_w.append(w)
 
 
 def _apply_pose_correction(state: SlamState, R_old, t_old, R_new, t_new) -> SlamState:
@@ -326,19 +424,24 @@ def _windowed_ba_body(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw
 
 
 _WINDOWED_BA = Program(_windowed_ba_body, static_argnames=("W", "solver", "iterations", "mesh"))
+_PACK_LIVE = Program(_pack_live)     # the spill's packing (the reference's jitted _pack_live)
+_RELOAD = Program(_reload_body)     # the archive reload's insert (the reference's jitted one)
+
+
+def _reload_insert(lmap, cand):
+    """The reload's insert as one captured program; fresh."""
+    return fresh(_RELOAD(lmap, cand))
 
 
 def _windowed_ba(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig,
                  W: int, solver: str, iterations: int, mesh=None):
     """``_windowed_ba_body`` as one captured program per (W, solver,
-    iterations, shapes) for the dense and CG solvers, as the reference jits
-    it; ``solver="dist"`` runs eagerly. Returns fresh tensors (R, t, lmap
-    xyz, R_cur, t_cur, [rmse_before, rmse_after, n_dropped_obs])."""
-    if solver == "dist":
-        return _windowed_ba_body(db, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig, W=W,
-                                 solver=solver, iterations=iterations, mesh=mesh)
+    iterations, mesh, shapes), as the reference jits it; the sharded
+    solver's all-reduces on the one-rank group are captured with it.
+    Returns fresh tensors (R, t, lmap xyz, R_cur, t_cur, [rmse_before,
+    rmse_after, n_dropped_obs])."""
     return fresh(_WINDOWED_BA(db, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw, rig, W=W,
-                              solver=solver, iterations=iterations))
+                              solver=solver, iterations=iterations, mesh=mesh))
 
 
 @functools.lru_cache(maxsize=4)
@@ -371,17 +474,43 @@ def _run_windowed_ba(sys: SlamSystem):
     return rmse
 
 
+def _retrain_body(kp_desc, kp_valid, db_valid, db_frame_idx, sample, last_slot, levels: int,
+                  branch: int, words: int, draw: Callable, sift: bool):
+    """The retrain (``_retrain_vocab``'s device work): the vocabulary over
+    every stored keyframe's descriptors and the archive ``sample`` (packed
+    descriptors and their mask, or None), then every stored keyframe
+    re-quantised into a rebuilt database without ``last_slot``'s. Returns
+    (vocabulary, database)."""
+    K, N = kp_valid.shape
+    desc = kp_desc.reshape(K * N, kp_desc.shape[-1])
+    valid = (kp_valid & db_valid[:, None]).reshape(K * N)
+    if sample is not None:
+        a_desc, a_valid = sample
+        desc = torch.cat([desc, lsh_binarize(a_desc) if sift else a_desc])
+        valid = torch.cat([valid, a_valid])
+    vocab = _vocab_body(desc, valid, levels, branch, words, draw)
+    hists = descriptors_to_bow(vocab, kp_desc, kp_valid)
+    keep = db_valid & (torch.arange(K, device=kp_desc.device) != last_slot)
+    hists = hists * keep[:, None]
+    return vocab, BowDatabase(
+        hist=hists, frame_idx=torch.where(keep, db_frame_idx, -1).to(torch.int32), valid=keep,
+        next_slot=last_slot.clone(), doc_freq=(hists > 0).to(torch.float32).sum(0))
+
+
+_RETRAIN = Program(_retrain_body, static_argnames=("levels", "branch", "words", "draw", "sift"))
+
+
 def _retrain_vocab(sys: SlamSystem, draw: Optional[Callable] = None):
     """Retrain the vocabulary over every stored keyframe's descriptors plus a
     fixed-size sample of archived landmark descriptors, and re-quantise the
     stored keyframes; the keyframe just added is left out of the rebuilt
-    database (its histogram goes in with the loop gate right after)."""
+    database (its histogram goes in with the loop gate right after). The
+    sample is drawn on the host and goes up from pinned memory; the rest is
+    one captured program."""
     db = sys.kf_db
-    K, N = db.kp_lm.shape
     dev = sys.device
-    desc = db.kp_desc.reshape(K * N, db.kp_desc.shape[-1])
-    valid = (db.kp_valid & db.valid[:, None]).reshape(K * N)
     n_s = sys.bcfg.vocab_archive_sample
+    sample = None
     if n_s > 0 and sys.archive is not None and len(sys.archive) > 0:
         arch = sys.archive
         take = min(len(arch), n_s)
@@ -391,17 +520,13 @@ def _retrain_vocab(sys: SlamSystem, draw: Optional[Callable] = None):
         a_valid = np.zeros(n_s, bool)
         a_valid[:take] = True
         a_desc = a_desc.view(np.int32) if a_desc.dtype == np.uint32 else a_desc
-        desc = torch.cat([desc, _binary_codes(sys.cfg, torch.from_numpy(a_desc).to(dev))])
-        valid = torch.cat([valid, torch.from_numpy(a_valid).to(dev)])
-    sys.vocab = _train_vocab(sys.bcfg, desc, valid, draw or generator_draw(13, dev))
+        sample = (upload(a_desc, dev), upload(a_valid, dev))
+    last = upload(np.array(sys.last_kf_slot, np.int32), dev)
+    sys.vocab, sys.bow_db = fresh(_RETRAIN(
+        db.kp_desc, db.kp_valid, db.valid, db.frame_idx, sample, last,
+        draw=draw or GeneratorDraw(13, dev), sift=sys.cfg.descriptor == "sift",
+        **_vocab_shape(sys.bcfg)))
     sys.n_vocab_trains += 1
-    hists = descriptors_to_bow(sys.vocab, db.kp_desc, db.kp_valid)
-    keep = db.valid & (torch.arange(K, device=dev) != sys.last_kf_slot)
-    hists = hists * keep[:, None]
-    sys.bow_db = BowDatabase(
-        hist=hists, frame_idx=torch.where(keep, db.frame_idx, -1).to(torch.int32), valid=keep,
-        next_slot=torch.full((), sys.last_kf_slot, dtype=torch.int32, device=dev),
-        doc_freq=(hists > 0).to(torch.float32).sum(0))
     sys.last_vocab_kfs = sys.n_keyframes
 
 
@@ -502,7 +627,7 @@ def _try_relocalize(sys: SlamSystem, noise=None) -> bool:
     """Kidnap recovery: BoW-query the current frame, PnP-verify, and on
     success restart the tracker at the verified anchor (live map and
     feature table invalidated, motion model reset). One blocking read."""
-    snap = _kf_snapshot(sys.state)
+    snap = _snapshot(sys, NOW)
     k = sys.bcfg.bow_top_k
     if noise is None:
         noise = _gate_noise(sys.n_frames, min(k, sys.bcfg.max_keyframes), snap.xy.shape[0],
@@ -585,63 +710,89 @@ def _try_loop_closure(sys: SlamSystem, kf_slot: int, frame_idx: int,
         return False
     dbg["fired"] = True
     dbg["matched_frame"] = int(frames[pick])
-    sys.edge_i.append(kf_slot)
-    sys.edge_j.append(int(slots[pick]))
-    sys.edge_R.append(Rms[pick].astype(np.float32))
-    sys.edge_t.append(tms[pick].astype(np.float32))
-    sys.edge_w.append(5.0)
+    Rt = upload(np.concatenate([Rms[pick].reshape(-1), tms[pick]]).astype(np.float32), sys.device)
+    _append_edge(sys, kf_slot, int(slots[pick]), Rt[:9].view(3, 3), Rt[9:], 5.0)
     sys.n_loop_closures += 1
     _run_pose_graph(sys)
     return True
 
 
-def _edge_tensor(x, device):
-    return torch.as_tensor(x, dtype=torch.float32).to(device)
+def _pose_graph_body(R, t, valid, frame_idx, kp_xyz, edge_R, edge_t, edge_meta, slot, R_cw,
+                     t_cw, lmap_xyz, iterations: int):
+    """The pose graph (the reference's jitted ``optimize_pose_graph``) over
+    the database's poses and the edge rows (``edge_meta`` = [i, j, weight,
+    valid] per row), gauge the oldest valid keyframe, then the correction
+    carried to the keyframes' landmark snapshots, the live pose and the live
+    map by keyframe ``slot``'s change (a 0-d device tensor). Returns (R, t,
+    kp_xyz, R_cw, t_cw, lmap xyz, R_old, t_old, R_new, t_new)."""
+    K = R.shape[0]
+    dev = R.device
+    # gauge: the oldest valid keyframe (none when the database is empty)
+    big = torch.full((), 2 ** 30, dtype=frame_idx.dtype, device=dev)
+    oldest = torch.argmin(torch.where(valid, frame_idx, big))
+    fixed = (torch.arange(K, device=dev) == oldest) & valid.any()
+    g = PoseGraph(R=R, t=t, node_valid=valid, node_fixed=fixed,
+                  edge_i=edge_meta[:, 0].to(torch.int32), edge_j=edge_meta[:, 1].to(torch.int32),
+                  edge_R=edge_R, edge_t=edge_t, edge_valid=edge_meta[:, 3] > 0.5,
+                  edge_weight=edge_meta[:, 2])
+    res = optimize_pose_graph(g, iterations=iterations)
+    row = slot.reshape(1)
+    R_old, t_old = R.index_select(0, row)[0], t.index_select(0, row)[0]
+    R_new, t_new = res["R"].index_select(0, row)[0], res["t"].index_select(0, row)[0]
+    Rd = torch.einsum("kji,kjl->kil", res["R"], R)             # R_newᵀ R_old
+    td = torch.einsum("kji,kj->ki", res["R"], t - res["t"])    # R_newᵀ(t_old − t_new)
+    new_xyz = torch.einsum("kij,knj->kni", Rd, kp_xyz) + td[:, None, :]
+    Ri, ti = se3_inverse(R_old, t_old)
+    Rc, tc = se3_compose(R_new, t_new, Ri, ti)
+    R_cur, t_cur = se3_compose(Rc, tc, R_cw, t_cw)
+    lm_xyz = lmap_xyz @ Rd.index_select(0, row)[0].T + td.index_select(0, row)[0]
+    return res["R"], res["t"], new_xyz, R_cur, t_cur, lm_xyz, R_old, t_old, R_new, t_new
+
+
+_POSE_GRAPH = Program(_pose_graph_body, static_argnames=("iterations",))
+
+
+def _edge_rows(sys: SlamSystem, n_e: int) -> tuple:
+    """The first ``n_e`` edges' measurements stacked into ``max_edges``
+    device rows (identity past ``n_e``); a restored system's host entries
+    go up from pinned memory."""
+    E, dev = sys.bcfg.max_edges, sys.device
+
+    def stacked(xs):
+        return torch.stack([x if torch.is_tensor(x) else upload(np.asarray(x, np.float32), dev)
+                            for x in xs[:n_e]])
+
+    R = torch.eye(3, device=dev).repeat(E, 1, 1)
+    t = torch.zeros((E, 3), device=dev)
+    R[:n_e] = stacked(sys.edge_R)
+    t[:n_e] = stacked(sys.edge_t)
+    return R, t
 
 
 def _run_pose_graph(sys: SlamSystem):
     """Optimise all keyframe poses over odometry and loop edges (the first
     ``max_edges`` edges), then carry the correction to the keyframes'
     landmark snapshots, the live pose, the live map and the queued
-    snapshots."""
-    K = sys.bcfg.max_keyframes
+    snapshots: one captured program, its edges' measurements stacked from
+    the device tensors kept as each edge was appended and their indices
+    and weights uploaded from pinned memory."""
     E = sys.bcfg.max_edges
     dev = sys.device
     n_e = min(len(sys.edge_i), E)
-    edge_i = torch.zeros(E, dtype=torch.int32)
-    edge_j = torch.zeros(E, dtype=torch.int32)
-    edge_i[:n_e] = torch.tensor(sys.edge_i[:n_e], dtype=torch.int32)
-    edge_j[:n_e] = torch.tensor(sys.edge_j[:n_e], dtype=torch.int32)
-    edge_w = torch.zeros(E, dtype=torch.float32)
-    edge_w[:n_e] = torch.tensor(sys.edge_w[:n_e], dtype=torch.float32)
-    edge_valid = torch.arange(E) < n_e
-    pad = E - n_e
-    edge_R = torch.cat([torch.stack([_edge_tensor(r, dev) for r in sys.edge_R[:n_e]]),
-                        torch.eye(3, device=dev).expand(pad, 3, 3)]) if n_e else \
-        torch.eye(3, device=dev).repeat(E, 1, 1)
-    edge_t = torch.cat([torch.stack([_edge_tensor(t, dev) for t in sys.edge_t[:n_e]]),
-                        torch.zeros((pad, 3), device=dev)]) if n_e else \
-        torch.zeros((E, 3), device=dev)
-    db = sys.kf_db
-    slot = sys.last_kf_slot
-    R_old, t_old = db.R[slot], db.t[slot]
-    # gauge: the oldest valid keyframe (none when the database is empty)
-    big = torch.full((), 2 ** 30, dtype=db.frame_idx.dtype, device=dev)
-    oldest = torch.argmin(torch.where(db.valid, db.frame_idx, big))
-    fixed = (torch.arange(K, device=dev) == oldest) & db.valid.any()
-    g = PoseGraph(R=db.R, t=db.t, node_valid=db.valid, node_fixed=fixed,
-                  edge_i=edge_i.to(dev), edge_j=edge_j.to(dev), edge_R=edge_R, edge_t=edge_t,
-                  edge_valid=edge_valid.to(dev), edge_weight=edge_w.to(dev))
-    res = optimize_pose_graph(g, iterations=sys.bcfg.pose_graph_iterations)
-    Rd = torch.einsum("kji,kjl->kil", res["R"], db.R)             # R_newᵀ R_old
-    td = torch.einsum("kji,kj->ki", res["R"], db.t - res["t"])    # R_newᵀ(t_old − t_new)
-    new_xyz = torch.einsum("kij,knj->kni", Rd, db.kp_xyz) + td[:, None, :]
-    sys.kf_db = db._replace(R=res["R"], t=res["t"], kp_xyz=new_xyz)
-    sys.state = _apply_pose_correction(sys.state, R_old, t_old, res["R"][slot], res["t"][slot])
-    lmap = sys.state.lmap
-    sys.state = sys.state._replace(lmap=lmap._replace(xyz=lmap.xyz @ Rd[slot].T + td[slot]))
-    sys._pg_delta = (R_old, t_old, res["R"][slot], res["t"][slot])
-    sys._tel_queue = [(packed, _epoch_correct_snap(s, *sys._pg_delta), fidx)
+    meta = np.zeros((E, 4), np.float32)
+    meta[:n_e, 0] = sys.edge_i[:n_e]
+    meta[:n_e, 1] = sys.edge_j[:n_e]
+    meta[:n_e, 2] = sys.edge_w[:n_e]
+    meta[:n_e, 3] = 1.0
+    db, lmap = sys.kf_db, sys.state.lmap
+    R, t, kp_xyz, R_cur, t_cur, lm_xyz, *delta = fresh(_POSE_GRAPH(
+        db.R, db.t, db.valid, db.frame_idx, db.kp_xyz, *_edge_rows(sys, n_e), upload(meta, dev),
+        upload(np.array(sys.last_kf_slot, np.int64), dev), sys.state.R_cw, sys.state.t_cw,
+        lmap.xyz, iterations=sys.bcfg.pose_graph_iterations))
+    sys.kf_db = db._replace(R=R, t=t, kp_xyz=kp_xyz)
+    sys.state = sys.state._replace(R_cw=R_cur, t_cw=t_cur, lmap=lmap._replace(xyz=lm_xyz))
+    sys._pg_delta = tuple(delta)
+    sys._tel_queue = [(packed, _epoch_correct(sys, s, fidx), fidx)
                       for packed, s, fidx in sys._tel_queue]
 
 
@@ -667,7 +818,8 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
     sys.n_frames += 1
     L = sys.bcfg.telemetry_lag
     if L > 0:
-        sys._tel_queue.append((packed, _kf_snapshot(sys.state), sys.n_frames - 1))
+        frame = sys.n_frames - 1
+        sys._tel_queue.append((packed, _snapshot(sys, _ring_slot(sys, frame)), frame))
         if len(sys._tel_queue) <= L:
             return None, _info(None, (time.time() - t0) * 1000)
         packed, snap, frame_idx = sys._tel_queue.pop(0)
@@ -697,7 +849,7 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
                     sys._reloc_cooldown = sys.bcfg.reloc_cooldown
     if bool(tel.is_keyframe):
         if snap is None:
-            snap = _kf_snapshot(sys.state)
+            snap = _snapshot(sys, NOW)
         _keyframe_backend(sys, snap, frame_idx, backend_info)
         backend_info["backend_ms"] = (time.time() - t1) * 1000
     return tel, backend_info
@@ -759,7 +911,8 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
             sys.host_reads["reload"] += 1
         sys.state = sys.state._replace(lmap=sys.archive.reload(
             sys.state.lmap, sys.state.R_cw, sys.state.t_cw, sys.rig.left, sys.n_frames,
-            reload_max=sys.bcfg.spill_reload_max, radius=sys.bcfg.spill_radius))
+            reload_max=sys.bcfg.spill_reload_max, radius=sys.bcfg.spill_radius,
+            insert=_reload_insert))
         backend_info["spill"] = {"archived": len(sys.archive), "reloads": sys.archive.n_reloads}
     mark("spill_resolve")
     # the previous keyframe's deferred loop gate: a fired pose graph corrects
@@ -770,33 +923,24 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
         fired = _try_loop_closure(sys, pslot, pframe, packed=packed)
         backend_info["loop"] = fired
         if fired:
-            snap = _epoch_correct_snap(snap, *sys._pg_delta)
+            snap = _epoch_correct(sys, snap, frame_idx)
     mark("resolve")
     prev_slot = sys.last_kf_slot
     slot = sys.n_keyframes % sys.bcfg.max_keyframes   # host mirror of kf_db.next_slot
     sys.n_keyframes += 1
     kf_desc = _binary_codes(sys.cfg, snap.desc)
-    sys.kf_db = kf_db_add(sys.kf_db, snap.R_cw, snap.t_cw, snap.xy, snap.lm_idx,
-                          snap.valid & (snap.lm_idx >= 0), kf_desc, frame_idx,
-                          kp_uvr=snap.uv_r, kp_stereo=snap.stereo_ok,
-                          kp_lm_gen=snap.kp_lm_gen, kp_xyz=snap.kp_xyz)
+    _kf_add(sys, snap, kf_desc, frame_idx, slot, prev_slot)
     sys.last_kf_slot = slot
-    sys.last_kf_snap = snap
-    if prev_slot >= 0:
-        Ri, ti = se3_inverse(sys.kf_db.R[prev_slot], sys.kf_db.t[prev_slot])
-        Rm, tm = se3_compose(snap.R_cw, snap.t_cw, Ri, ti)
-        sys.edge_i.append(slot)
-        sys.edge_j.append(prev_slot)
-        sys.edge_R.append(Rm)        # device tensors, stacked when the graph runs
-        sys.edge_t.append(tm)
-        sys.edge_w.append(1.0)
+    # the snapshot's ring entry is called again telemetry_lag + 1 frames on;
+    # the caller (the app's overlays) keeps this one longer
+    sys.last_kf_snap = fresh(snap)
     mark("kf_add")
     pending_loop = None
     if sys.bcfg.enable_loop_closure:
         n_kfs = sys.n_keyframes
         if sys.vocab is None:
             sys.vocab = _train_vocab(sys.bcfg, kf_desc, snap.valid,
-                                     draws.vocab or generator_draw(7, sys.device))
+                                     draws.vocab or GeneratorDraw(7, sys.device))
             sys.n_vocab_trains += 1
         elif (n_kfs >= sys.bcfg.vocab_retrain_kfs
               and n_kfs >= sys.last_vocab_kfs * sys.bcfg.vocab_retrain_growth):
@@ -813,7 +957,10 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
             backend_info["loop"] = _try_loop_closure(sys, slot, frame_idx, packed=pending_loop)
     mark("resolve_sync")
     if sys.bcfg.enable_map_spill and sys.archive is not None:
-        spill = HostCopy(_pack_live(sys.state.lmap))
+        # the packed table is the program's static output, overwritten by its
+        # next replay (the next keyframe's); HostCopy's copy is queued on the
+        # same stream before that replay, so it reads this one
+        spill = HostCopy(_PACK_LIVE(sys.state.lmap))
         mark("spill_pack")
         sys._pending_spill = spill
         if sys.bcfg.spill_resolve_lag == 0:

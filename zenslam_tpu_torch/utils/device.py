@@ -1,7 +1,9 @@
-"""The device rule of the package's entry points and constructors."""
+"""The device rule of the package's entry points and constructors, and the
+host<->device copies that do not synchronise."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,3 +40,36 @@ def upload_constant(a, device) -> torch.Tensor:
             hit = t.to(dev, copy=True)
         _CONSTANTS[key] = hit
     return hit
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """The host array ``a`` as a tensor on ``device``. To a CUDA device it
+    goes through a pinned block without blocking (the caching host
+    allocator keeps the block until the copy has run), so it does not
+    synchronise; on the CPU it is a copy of its own."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).reshape(np.shape(a))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.clone()
+
+
+class HostCopy:
+    """A device->host copy started now and read later. On CUDA the tensor is
+    copied into pinned memory behind an event, and ``numpy()`` waits on that
+    event only; on the CPU it holds a copy (the tensor may be a captured
+    program's static output, which the next call overwrites)."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf, self._event = t.clone(), None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()
