@@ -99,7 +99,7 @@ Phases (each one fatal on failure):
    ``run_system`` twice, loop closure off and on with that test's configs:
    at least one loop closes, and the keyframe ATE with loops is below the
    one without; 2 LK + 1 ORB launches per frame in each run;
-7a. graphs: the captured programs (``pipeline/graphs.py``: CUDA graphs,
+7a. graphs: the captured programs (``utils/graphs.py``: CUDA graphs,
    the default of the step, the system, the app and the benchmark, which
    the phases above and below run) held against the same code under
    ``graphs.eager()`` in one process: (a) the slice's 40 frames through
@@ -124,8 +124,11 @@ Phases (each one fatal on failure):
    SPILL_FRAMES frames of the reference's slot-pressure orbit
    (``tests/test_map_spill.py``, a 384-slot map): more than 200 spills and
    some reloads, as that test asks, the reload program called;
-   then every program's capture ms. Where two eager runs part, graphed is
-   held within their spread and the outputs are named;
+   then every program's capture ms, and that the library programs the
+   system's programs call in their functions (the solvers, the keyframe,
+   BoW and reload functions) captured nothing over the phase: inline
+   there, as jit inlines a nested jit. Where two eager runs part, graphed
+   is held within their spread and the outputs are named;
 8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
    448x336 orbit, frames 80-95 skipped, run up to frame KIDNAP_END; the
    test runs on to 111) for the port alone, relocalisation
@@ -230,9 +233,12 @@ Phases (each one fatal on failure):
 13. dist: the sharded BA (``parallel/``) on a one-rank NCCL group, as
    ``__graft_entry__.py:dryrun_multichip`` drives it: (a) the solver alone
    on the dry run's stage-1 problem (K = 8 on an arc, 8 x 32 landmarks,
-   seed 0), 8 LM steps with 1 and 8 shards against the dense solver: max
-   |dt| and |dR| < 5e-3, cost down > 10x, the shard counts within 1e-4,
-   the group's backend ``nccl``, 1 + 2 x 8 collectives a solve; (b) the
+   seed 0), 8 LM steps with 1 and 8 shards against the dense solver, both
+   captured programs as a caller gets them (the first call captures, the
+   timed ones replay; host ms eager beside them): max |dt| and |dR| <
+   5e-3, cost down > 10x, the shard counts within 1e-4, each bit-identical
+   to its eager call, the group's backend ``nccl``, 1 + 2 x 8 collectives
+   a replayed solve (counted by the capture) as the eager call makes; (b) the
    system phase's 80-frame run with ``ba_solver="dist"`` at one shard
    (``dist_devices=0``) and at 8, beside the system phase's dense run: the
    same keyframes and BA runs, every window's rmse_after <= 1.05
@@ -267,17 +273,33 @@ Phases (each one fatal on failure):
    verdict on it printed; the 2 workers' wall time (reported);
 13a. scaling: ``zenslam_tpu_torch.eval.scaling``'s problem (K=32, M=16384,
    O=131072, ``scaling_bench.py``'s draws) through ``dist_bundle_adjust``
-   at 1 and 8 local shards of the one-rank group, one untimed and one timed
-   solve each: the cost falls at both, the 8-shard R and t within 5e-3 of
-   the 1-shard solve; ms per LM iteration printed;
+   at 1 and 8 local shards of the one-rank group by its ``time_solve``
+   (one untimed and three timed solves), captured and under
+   ``graphs.eager()``: bit-identical, the cost falls at both, the 8-shard R
+   and t within 5e-3 of the 1-shard solve; ms per LM iteration both ways,
+   graphs held and peak memory printed;
+13b. solvers: every public back-end entry point that the reference jits
+   (``bundle_adjust``, ``bundle_adjust_cg``, ``dist_bundle_adjust``,
+   ``shard_ba_problem_device``, ``optimize_pose_graph``, the vocabulary
+   builders, ``descriptors_to_bow``, ``bow_db_add``, ``bow_db_query``,
+   ``kf_db_add``, ``kf_db_update_poses``, ``reload_into_map``,
+   ``_pack_live``) called directly, at the system's default sizes, the
+   dense solver on ``io/bal.py``'s synthetic BAL subset motion-only and
+   with perturbed landmarks and trim (``tests/test_bal.py``'s checks):
+   captured against ``graphs.eager()``, bit-identical, the first call's
+   output the caller's (unchanged by later calls), the inputs unwritten,
+   other traced ints through the same capture; host ms of the first call
+   (the capture) and of SOLVER_REPEATS calls each way, captures, graphs
+   held and peak memory;
 14. the seconds of all phases, a ``kernels`` JSON line (``launches`` is the
    system phase's count, ``launches_by_path`` every path's), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-The step, the windowed BA (dense, CG) and the loop and reloc gates run as
-captured programs wherever ``process_frame``, ``make_slam_step``,
-``eval/bench.py`` and the app run them; what calls ``slam_step`` itself
+The step, the keyframe path's programs and the back end's public solvers
+run as captured programs wherever ``process_frame``, ``make_slam_step``,
+``eval/bench.py``, ``eval/scaling.py``, the app or a direct call run them
+(a program inside another's function runs inline); what calls ``slam_step`` itself
 (fma, the lines and families warm-up frames whose implicit synchronises
 are read, the re-run frames whose kernel inputs are recorded, the branch
 costs) runs the eager function.
@@ -370,6 +392,7 @@ DEVICE_CALLS = 50    # wrapper calls captured in one CUDA graph
 COST_ROUNDS = 5      # step_cost: alternating rounds of host timing
 PROFILE_FRAMES = 3   # graphs phase: frames under torch.profiler, eager and graphed
 SPILL_FRAMES = 16    # graphs phase: frames of the slot-pressure orbit (it reloads from frame 6)
+SOLVER_REPEATS = 3   # solvers phase: timed calls each way after the first
 
 
 class PhaseError(RuntimeError):
@@ -1161,7 +1184,7 @@ def phase_bench(dev):
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.ops.image import gaussian_blur
     from zenslam_tpu_torch.pipeline import SlamConfig, slam_step, step
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
     from zenslam_tpu_torch.pipeline.state import pack_telemetry
 
     t0 = time.perf_counter()
@@ -1455,7 +1478,8 @@ def phase_system_cg(seq, dev, dense: dict) -> dict:
     the dense solver on the same inputs. Returns the launches."""
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.pipeline import SlamConfig
-    from zenslam_tpu_torch.pipeline import graphs, system
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.utils import graphs
     from zenslam_tpu_torch.pipeline.system import BackendConfig, create_system
 
     t0 = time.perf_counter()
@@ -1578,7 +1602,7 @@ def run_windows(seq, cfg, bcfg, deterministic: bool = False):
     import torch
 
     from zenslam_tpu_torch.pipeline import system
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
     from zenslam_tpu_torch.pipeline.system import create_system, process_frame
 
     windows, runs = [], []
@@ -2125,7 +2149,7 @@ def vio_branch_cost(opts_path, k: int, dev, pairs: int = COST_ROUNDS) -> dict:
 
 def eager_call(fn):
     """``fn()`` with every captured program run eagerly (``graphs.eager()``)."""
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
 
     with eager():
         return fn()
@@ -2262,7 +2286,7 @@ def recorded_calls(module, name: str, calls: list, copy: bool = False):
     ``calls`` as (args, kwargs); with ``copy``, the arguments' tensors
     copied (``graphs.fresh``: a captured step's state is its buffers, which
     the next frame overwrites)."""
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
 
     inner = getattr(module, name)
 
@@ -2297,7 +2321,7 @@ def phase_lines(dev):
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
     from zenslam_tpu_torch.io.synthetic import make_sequence
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step, slam_step
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
 
     t0 = time.perf_counter()
     seq = make_sequence(np.random.default_rng(11), n_frames=LINES_FRAMES, width=SIZE,
@@ -2600,7 +2624,7 @@ def family_run(cfg, seq, dev) -> dict:
 
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
     from zenslam_tpu_torch.pipeline import init_state, make_slam_step, slam_step
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
 
     state = init_state(cfg, (SIZE, SIZE), seed=0, device=dev)
     step = make_slam_step(cfg, seq.rig)
@@ -2840,32 +2864,29 @@ def dist_problem(dev):
         obs_lm=t(obs_lm, torch.int32), obs_uv=t(obs_uv), obs_valid=t(np.ones(O, bool), torch.bool))
 
 
-@contextlib.contextmanager
-def counted_collectives():
-    """Inside the block, the sizes (floats) of every all-reduce that the
-    sharded solver makes, in order."""
-    from zenslam_tpu_torch.parallel import dist_ba
+def collectives_of(fn) -> tuple:
+    """(``fn()``, the all-reduces it issued, the floats they reduced): the
+    sharded solver's counters (``parallel/dist_ba.py:collectives``), which a
+    replay advances by what its capture issued."""
+    from zenslam_tpu_torch.parallel.dist_ba import collectives
 
-    inner, sizes = dist_ba._all_reduce, []
-
-    def counted(x, mesh):
-        sizes.append(x.numel())
-        return inner(x, mesh)
-
-    dist_ba._all_reduce = counted
-    try:
-        yield sizes
-    finally:
-        dist_ba._all_reduce = inner
+    c0, f0 = collectives.calls, collectives.floats
+    out = fn()
+    return out, collectives.calls - c0, collectives.floats - f0
 
 
 def dist_solver_alone(dev) -> None:
     """(a): the sharded solver alone on the dry run's stage-1 problem, 1 and 8
-    shards on the one-rank NCCL mesh, against the dense solver."""
+    shards on the one-rank NCCL mesh, against the dense solver: both
+    solvers as a caller gets them, captured programs (the first call
+    captures; the timed calls replay), each bit-identical to its eager
+    call, the collectives a solve counted through the capture and equal to
+    the eager call's."""
     import torch
     import torch.distributed as tdist
 
     from zenslam_tpu_torch.backend.ba import bundle_adjust
+    from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.parallel import dist_bundle_adjust, make_ba_mesh, shard_ba_problem
 
     p = dist_problem(dev)
@@ -2878,22 +2899,30 @@ def dist_solver_alone(dev) -> None:
         backend = tdist.get_backend(mesh.group)
         require(backend == "nccl", f"dist: the {dev} mesh reduces over {backend!r}, not nccl")
         ps = shard_ba_problem(p, n)
-        with counted_collectives() as sizes:
-            r = dist_bundle_adjust(ps, mesh, iterations=DIST_ITERS)
-            torch.cuda.synchronize()
-        ms = float(np.median(time_calls(
-            lambda: dist_bundle_adjust(ps, mesh, iterations=DIST_ITERS), 5, repeats=3)))
+
+        def solve():
+            return dist_bundle_adjust(ps, mesh, iterations=DIST_ITERS)
+
+        solve()                                              # the capture
+        r, n_coll, n_floats = collectives_of(solve)          # a replay
+        e, e_coll, e_floats = collectives_of(lambda: eager_call(solve))
+        ms = float(np.median(time_calls(solve, 5, repeats=3)))
+        eager_ms = float(np.median(time_calls(lambda: eager_call(solve), 5, repeats=3)))
         dt = float((r["t"] - dense["t"]).abs().max())
         dR = float((r["R"] - dense["R"]).abs().max())
         cb, ca = float(r["cost_before"]), float(r["cost_after"])
         print(f"[dist] solver alone, {n} shard(s) over a {backend} group of "
               f"{tdist.get_world_size(mesh.group)} rank: K=8 M={p.xyz.shape[0]} "
               f"O={p.obs_kf.shape[0]}, cost {cb:.4f} -> {ca:.6f}, vs dense max|dt| {dt:.2e} "
-              f"max|dR| {dR:.2e}; {len(sizes)} collectives a solve ({sizes[0]} + "
-              f"{DIST_ITERS} x ({sizes[1]} + {sizes[2]}) floats); {ms:.2f} ms a solve "
-              f"(dense {dense_ms:.2f} ms; host + device, CUDA events)")
-        require(len(sizes) == 1 + 2 * DIST_ITERS,
-                f"dist: {len(sizes)} collectives a solve != 1 + 2 x {DIST_ITERS}")
+              f"max|dR| {dR:.2e}; {n_coll} collectives a solve, {n_floats} floats (counted by "
+              f"the capture, added by the replay; eager {e_coll}, {e_floats}); captured "
+              f"{ms:.2f} ms a solve, eager {eager_ms:.2f} (dense captured {dense_ms:.2f} ms; "
+              f"host + device, CUDA events); bit-identical to eager: "
+              f"{not parted(r, e)}; {card_line()}")
+        require(n_coll == e_coll == 1 + 2 * DIST_ITERS and n_floats == e_floats,
+                f"dist: {n_coll} collectives ({n_floats} floats) a replayed solve, eager "
+                f"{e_coll} ({e_floats}), != 1 + 2 x {DIST_ITERS}")
+        require(not parted(r, e), f"dist: {n} shards captured part from eager in {parted(r, e)}")
         require(dt < 5e-3 and dR < 5e-3, f"dist: {n} shards max|dt| {dt:.2e} max|dR| {dR:.2e} "
                                          "against the dense solver (bar 5e-3)")
         require(ca < cb / 10, f"dist: {n} shards cost {cb:.4f} -> {ca:.4f}, not a 10x drop")
@@ -2907,7 +2936,7 @@ def dist_solver_alone(dev) -> None:
 def recorded_windows(system_module, windows: list):
     """Inside the block, append to ``windows`` the (arguments, keyword
     arguments, outputs) of every ``_windowed_ba`` call."""
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
 
     window = system_module._windowed_ba
 
@@ -2977,7 +3006,7 @@ def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
     held_to_eager(tag, f"ba_solver dist, {n_shards or 1} shard(s), {SYSTEM_FRAMES} frames",
                   e_out, system_outputs(s, run["tels"]),
                   lambda: graphed_system(seq, s.device, False, bcfg=bcfg)[0])
-    from zenslam_tpu_torch.pipeline import graphs
+    from zenslam_tpu_torch.utils import graphs
 
     mesh = system._live_ba_mesh(n_shards, s.device)
     captures = [round(c.capture_ms, 1) for c in system._WINDOWED_BA.captured.values()
@@ -3280,38 +3309,305 @@ def phase_dist(seq, dev, dense: dict) -> dict:
 def phase_scaling(dev) -> dict:
     """``[scaling]``: ``eval/scaling.py``'s problem (K=32, M=16384,
     O=131072) through ``dist_bundle_adjust`` at 1 and 8 local shards of the
-    one-rank NCCL group, one untimed and one timed solve each: the cost falls
-    at both, and the 8-shard R and t are within 5e-3 of the 1-shard solve
-    (the dry run's bar for the solver alone). Returns the launches (none:
+    one-rank NCCL group, by ``eval/scaling.py:time_solve`` (one untimed and
+    three timed solves), captured (its default: the untimed solve captures,
+    the timed ones replay) and under ``graphs.eager()``: the two
+    bit-identical, the cost falls at both shard counts, and the 8-shard R
+    and t are within 5e-3 of the 1-shard solve (the dry run's bar for the
+    solver alone); graphs held and peak memory. Returns the launches (none:
     no kernel is on this path)."""
+    import torch
+
     from zenslam_tpu_torch.eval.check_run import card_line
-    from zenslam_tpu_torch.eval.scaling import ITERATIONS, make_problem, time_solve
+    from zenslam_tpu_torch.eval.scaling import ITERATIONS, REPEATS, make_problem, time_solve
     from zenslam_tpu_torch.parallel import make_ba_mesh, shard_ba_problem
+    from zenslam_tpu_torch.utils.graphs import eager, graphs_held
 
     t0 = time.perf_counter()
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     p = make_problem(device=dev)
+    card = card_line()
     out = {}
     for n in (1, 8):
-        ms, r = time_solve(shard_ba_problem(p, n), make_ba_mesh(n, device=dev), repeats=1)
+        ps, mesh = shard_ba_problem(p, n), make_ba_mesh(n, device=dev)
+        ms, r = time_solve(ps, mesh)
+        with eager():
+            eager_ms, e = time_solve(ps, mesh)
         cb, ca = float(r["cost_before"]), float(r["cost_after"])
         print(f"[scaling] K=32 M={p.xyz.shape[0]} O={p.obs_kf.shape[0]}, {n} shard(s) on one "
-              f"card: {ms:.2f} ms/iteration ({ITERATIONS} LM steps, one timed solve) on "
-              f"{card_line()}; cost {cb:.1f} -> {ca:.4f}")
+              f"card: {ms:.3f} ms/iteration captured, {eager_ms:.3f} eager ({ITERATIONS} LM "
+              f"steps, {REPEATS} timed solves each, after one untimed) on {card}; cost "
+              f"{cb:.1f} -> {ca:.4f}; captured bit-identical to eager: {not parted(r, e)}")
+        require(not parted(r, e), f"scaling: {n} shards captured part from eager in "
+                                  f"{parted(r, e)}")
         require(np.isfinite(ca) and ca < cb, f"scaling: {n} shards cost {cb:.4f} -> {ca:.4f}")
         out[n] = r
     dR = float((out[8]["R"] - out[1]["R"]).abs().max())
     dt = float((out[8]["t"] - out[1]["t"]).abs().max())
     launches = read_launches()
-    print(f"[scaling] 8 shards vs 1: max|dR| {dR:.2e}, max|dt| {dt:.2e} (bar 5e-3); launches "
-          f"{launches}; phase {time.perf_counter() - t0:.1f} s")
+    print(f"[scaling] 8 shards vs 1: max|dR| {dR:.2e}, max|dt| {dt:.2e} (bar 5e-3); graphs "
+          f"held {graphs_held()}, peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; "
+          f"launches {launches}; phase {time.perf_counter() - t0:.1f} s")
     require(dR < 5e-3 and dt < 5e-3, f"scaling: 8 shards part from 1 by dR {dR:.2e} dt {dt:.2e}")
+    return launches
+
+
+def ring_graph(dev, K: int = 64, E: int = 256, seed: int = 5):
+    """A pose graph at the system's defaults (``max_keyframes`` 64,
+    ``max_edges`` 256): K poses on a 4 m circle looking inward, perturbed,
+    an odometry edge between neighbours and a loop edge every 8th node to
+    the node 32 back, measured from the truth with noise; the rest of the
+    E rows invalid; node 0 the gauge."""
+    import torch
+
+    from zenslam_tpu_torch.backend.pose_graph import PoseGraph
+    from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse, so3_exp
+
+    g = torch.Generator().manual_seed(seed)
+    yaw = torch.arange(K, dtype=torch.float32) * (2 * np.pi / K)
+    R = so3_exp(torch.stack([torch.zeros(K), yaw, torch.zeros(K)], -1))
+    t = torch.stack([4 * torch.sin(yaw), torch.zeros(K), 4 - 4 * torch.cos(yaw)], -1)
+    t = -(R @ t[..., None])[..., 0]
+    pairs = [(k, k - 1) for k in range(1, K)] + [(k, k - 32) for k in range(32, K, 8)]
+    i = torch.tensor([a for a, _ in pairs])
+    j = torch.tensor([b for _, b in pairs])
+    Rj, tj = se3_inverse(R[j], t[j])
+    Rm, tm = se3_compose(R[i], t[i], Rj, tj)
+    n = len(pairs)
+    Rm = so3_exp(torch.randn(n, 3, generator=g) * 0.002) @ Rm
+    tm = tm + torch.randn(n, 3, generator=g) * 0.005
+    eR = torch.eye(3).repeat(E, 1, 1)
+    et = torch.zeros(E, 3)
+    eR[:n], et[:n] = Rm, tm
+    ei = torch.zeros(E, dtype=torch.int32)
+    ej = torch.zeros(E, dtype=torch.int32)
+    ei[:n], ej[:n] = i.to(torch.int32), j.to(torch.int32)
+    R0 = so3_exp(torch.randn(K, 3, generator=g) * 0.01) @ R
+    t0 = t + torch.randn(K, 3, generator=g) * 0.05
+    return PoseGraph(R=R0.to(dev), t=t0.to(dev), node_valid=torch.ones(K, dtype=torch.bool,
+                                                                         device=dev),
+                     node_fixed=(torch.arange(K) == 0).to(dev), edge_i=ei.to(dev),
+                     edge_j=ej.to(dev), edge_R=eR.to(dev), edge_t=et.to(dev),
+                     edge_valid=(torch.arange(E) < n).to(dev),
+                     edge_weight=torch.where(torch.arange(E) < K - 1, 1.0, 5.0).to(dev))
+
+
+def clustered_desc(rng, n: int, centres: int = 200):
+    """``n`` packed descriptors (int32 words) around ``centres`` random
+    ones, three bits of each word flipped."""
+    c = rng.integers(0, 2 ** 32, (centres, 8), dtype=np.uint32)
+    d = c[rng.integers(0, centres, n)]
+    for _ in range(3):
+        d ^= np.uint32(1) << rng.integers(0, 32, (n, 8)).astype(np.uint32)
+    return d.view(np.int32)
+
+
+def solver_cases(dev) -> dict:
+    """``[solvers]``' inputs: entry point -> (program, inputs, other inputs
+    of the same shapes (other traced ints) or None, keyword arguments,
+    check of the captured output or None), at the system's default sizes
+    (64 keyframes of 512 keypoints, an 8192-slot map, 64 x 64 words) and on
+    the BAL and dry-run problems."""
+    import torch
+
+    from zenslam_tpu_torch.backend import ba, bow, keyframes, map_archive, pose_graph
+    from zenslam_tpu_torch.io.bal import bal_subset_ba_problem, make_synthetic_bal
+    from zenslam_tpu_torch.parallel import dist_ba, make_ba_mesh, shard_ba_problem
+    from zenslam_tpu_torch.pipeline import SlamConfig, init_state
+    from zenslam_tpu_torch.utils.graphs import eager
+
+    rng = np.random.default_rng(17)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # tests/test_bal.py:77-100 (motion-only) and :173-186 (landmarks perturbed), here with trim
+    bal_p, info = bal_subset_ba_problem(make_synthetic_bal(), device=dev)
+    free = ~info["kf_fixed"]
+    t_err0 = np.linalg.norm(bal_p.t.cpu().numpy()[free] - info["t_gt"][free], axis=-1).sum()
+    bal_full = bal_p._replace(xyz=bal_p.xyz + up(np.random.default_rng(3).normal(
+        0, 0.01, tuple(bal_p.xyz.shape)).astype(np.float32)))
+    lm_err0 = np.linalg.norm(bal_full.xyz.cpu().numpy() - info["xyz_gt"], axis=-1).mean()
+
+    def motion_only(r):
+        t_err = np.linalg.norm(r["t"].cpu().numpy()[free] - info["t_gt"][free], axis=-1).sum()
+        return (float(r["rmse_after"]) < float(r["rmse_before"]) and t_err < t_err0
+                and torch.equal(r["xyz"], bal_p.xyz)), f"t error {t_err0:.4f} -> {t_err:.4f}"
+
+    def full(r):
+        lm_err = np.linalg.norm(r["xyz"].cpu().numpy() - info["xyz_gt"], axis=-1).mean()
+        return (float(r["rmse_after"]) < 0.5 * float(r["rmse_before"]) and lm_err < lm_err0), (
+            f"rmse {float(r['rmse_before']):.4f} -> {float(r['rmse_after']):.4f}, landmark "
+            f"error {lm_err0:.5f} -> {lm_err:.5f}, trimmed {int(r['n_trimmed'])}")
+
+    dp = dist_problem(dev)
+    mesh8 = make_ba_mesh(8, device=dev)
+    O = dp.obs_kf.shape[0]
+
+    def cost_falls(r):
+        cb, ca = float(r["cost_before"]), float(r["cost_after"])
+        return ca < cb, f"cost {cb:.4f} -> {ca:.6f}"
+
+    # the BoW side at the system's defaults: 8 keyframes' 512 descriptors
+    kf_desc = up(clustered_desc(rng, 8 * 512)).reshape(8, 512, 8)
+    kf_valid = up(rng.random((8, 512)) < 0.9)
+    flat_desc, flat_valid = kf_desc.reshape(-1, 8), kf_valid.reshape(-1)
+    draw = bow.GeneratorDraw(13, dev)
+    with eager():
+        vocab = bow.build_vocabulary_tree(flat_desc, flat_valid, branch=64, iters=6, draw=draw)
+        hists = bow.descriptors_to_bow(vocab, kf_desc, kf_valid)
+        bdb = bow.bow_db_init(64, vocab.n_words, device=dev)
+        for f in range(6):
+            bdb = bow.bow_db_add(bdb, hists[f], 10 * f)
+
+    def kf_row(seed):
+        r = np.random.default_rng(seed)
+        lm = up(r.integers(-1, 8192, 512).astype(np.int32))
+        return (up(np.eye(3, dtype=np.float32)), up(r.normal(0, 1, 3).astype(np.float32)),
+                up(r.uniform(0, 1024, (512, 2)).astype(np.float32)), lm, lm >= 0,
+                up(clustered_desc(r, 512)))
+
+    def kf_kw(seed):
+        r = np.random.default_rng(seed + 1)
+        return dict(kp_uvr=up(r.uniform(0, 1024, (512, 2)).astype(np.float32)),
+                    kp_stereo=up(r.random(512) < 0.7),
+                    kp_lm_gen=up(r.integers(0, 3, 512).astype(np.int32)),
+                    kp_xyz=up(r.normal(0, 3, (512, 3)).astype(np.float32)))
+
+    kdb = keyframes.kf_db_init(64, 512, device=dev)
+    with eager():
+        for f in range(5):
+            kdb = keyframes.kf_db_add(kdb, *kf_row(f), 4 * f, **kf_kw(f))
+
+    lmap = init_state(SlamConfig(), (SIZE, SIZE), device=dev).lmap
+    lmap = lmap._replace(xyz=up(rng.normal(0, 3, (8192, 3)).astype(np.float32)),
+                         valid=up(rng.random(8192) < 0.8), desc=up(clustered_desc(rng, 8192)),
+                         last_seen=up(rng.integers(0, 60, 8192).astype(np.int32)),
+                         color=up(rng.random(8192).astype(np.float32)))
+    cand = (up(rng.normal(0, 3, (128, 3)).astype(np.float32)), up(clustered_desc(rng, 128)),
+            up(rng.random(128) < 0.9))
+
+    def placed(out):
+        n = int(out[2].sum())
+        return n > 0, f"{n} of 128 placed"
+
+    return {
+        "bundle_adjust (BAL, motion-only)": (
+            ba.bundle_adjust, (bal_p,), None, dict(iterations=12, huber_delta=1.0,
+                                                   refine_landmarks=False), motion_only),
+        "bundle_adjust (BAL, landmarks perturbed, trim)": (
+            ba.bundle_adjust, (bal_full,), None, dict(iterations=15, huber_delta=1.0,
+                                                      trim_threshold=2.0), full),
+        "bundle_adjust_cg (BAL, motion-only)": (
+            ba.bundle_adjust_cg, (bal_p,), None, dict(iterations=12, cg_iters=40,
+                                                      refine_landmarks=False), motion_only),
+        "dist_bundle_adjust (dry run, 8 shards)": (
+            dist_ba.dist_bundle_adjust, (shard_ba_problem(dp, 8), mesh8), None,
+            dict(iterations=DIST_ITERS), cost_falls),
+        "shard_ba_problem_device (dry run, 8 shards)": (
+            dist_ba.shard_ba_problem_device, (dp, 8, 2 * -(-O // 8)), None, {}, None),
+        "optimize_pose_graph (64 nodes, 256 edge rows)": (
+            pose_graph.optimize_pose_graph, (ring_graph(dev),), None, dict(iterations=15),
+            cost_falls),
+        "build_vocabulary_tree (4096 rows, branch 64)": (
+            bow.build_vocabulary_tree, (flat_desc, flat_valid), None,
+            dict(branch=64, iters=6, draw=draw), None),
+        "build_vocabulary (4096 rows, 128 words, default draw)": (
+            bow.build_vocabulary, (flat_desc, flat_valid), None, dict(n_words=128, iters=6),
+            None),
+        "descriptors_to_bow (8 x 512)": (
+            bow.descriptors_to_bow, (vocab, kf_desc, kf_valid), None, {}, None),
+        "bow_db_add": (bow.bow_db_add, (bdb, hists[6], 60), (bdb, hists[7], 70), {}, None),
+        "bow_db_query": (bow.bow_db_query, (bdb, hists[7], 70, 40), (bdb, hists[6], 55, 20),
+                         dict(top_k=3), None),
+        "kf_db_add (64 x 512)": (keyframes.kf_db_add, (kdb, *kf_row(10), 40), (
+            kdb, *kf_row(11), 44), kf_kw(10), None),
+        "kf_db_update_poses": (keyframes.kf_db_update_poses, (
+            kdb, kdb.R.flip(0).contiguous(), kdb.t + 0.5), None, {}, None),
+        "reload_into_map (8192 slots, 128 rows)": (
+            map_archive.reload_into_map, (lmap, *cand, 61), (lmap, *cand, 75), {}, placed),
+        "_pack_live (8192 slots)": (map_archive._pack_live, (lmap,), None, {}, None),
+    }
+
+
+def phase_solvers(dev) -> dict:
+    """``[solvers]``: every public back-end entry point that the reference
+    jits, called directly as a caller would, captured (``utils/graphs.py``)
+    against ``graphs.eager()``: the first call (the capture), then
+    SOLVER_REPEATS calls each way, host ms up to a synchronise; every output
+    bit-identical to the eager call's, the first call's output unchanged by
+    the later ones (the caller's), the inputs unchanged, other traced ints
+    through the same capture; the BAL and solver checks of the reference's
+    tests; captures, graphs held and peak memory. Returns the launches
+    (none: no kernel is on this path)."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.utils.graphs import Program, eager, graphs_held
+
+    t0 = time.perf_counter()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    card = card_line()
+    held_start = graphs_held()
+
+    def named(tree) -> dict:
+        return {str(i): t for i, t in enumerate(tree_tensors(tree))}
+
+    def host_ms(fn) -> tuple:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    for name, (prog, a, b, kw, check) in solver_cases(dev).items():
+        require(isinstance(prog, Program) and prog.copy_outputs,
+                f"solvers: {name} is not a program returning the caller's outputs")
+        inputs = {k: v.clone() for k, v in named((a, b, kw)).items()}
+        held0 = graphs_held()
+        first, cap_ms = host_ms(lambda: prog(*a, **kw))
+        kept = {k: v.clone() for k, v in named(first).items()}
+        graphed = [host_ms(lambda: prog(*a, **kw)) for _ in range(SOLVER_REPEATS)]
+        with eager():
+            eager_runs = [host_ms(lambda: prog(*a, **kw)) for _ in range(SOLVER_REPEATS)]
+        captures = graphs_held() - held0
+        want = named(eager_runs[0][0])
+        off = [parted(want, named(g)) for g, _ in graphed]
+        extra = ""
+        if b is not None:
+            got_b = prog(*b, **kw)
+            with eager():
+                want_b = prog(*b, **kw)
+            off.append(parted(named(want_b), named(got_b)))
+            require(graphs_held() - held0 == captures, f"solvers: {name}: other traced ints "
+                                                       "captured anew")
+            extra = "; other traced ints through the same capture, bit-identical"
+        require(not any(off), f"solvers: {name}: captured parts from eager in {off}")
+        require(not parted(kept, named(first)),
+                f"solvers: {name}: the first call's output changed under later calls")
+        require(not parted(inputs, named((a, b, kw))), f"solvers: {name}: an input was written")
+        ok, note = check(first) if check else (True, "")
+        require(ok, f"solvers: {name}: {note}")
+        g_ms = float(np.median([m for _, m in graphed]))
+        e_ms = float(np.median([m for _, m in eager_runs]))
+        first_is = "warm-up + capture" if captures else "a replay: an earlier phase captured it"
+        print(f"[solvers] {name}: first call ({first_is}) {cap_ms:.2f} ms, captured "
+              f"{g_ms:.3f} ms, eager {e_ms:.3f} ms a call (host, up to a synchronise, medians "
+              f"of {SOLVER_REPEATS}); {len(want)} outputs bit-identical to eager, the first "
+              f"kept unchanged, inputs unwritten{extra}; captures {captures}"
+              + (f"; {note}" if note else ""))
+    launches = read_launches()
+    print(f"[solvers] graphs held {graphs_held()} ({graphs_held() - held_start} by this phase), "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; {card}; launches "
+          f"{launches}; phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
 def tree_tensors(tree) -> list:
     """The tensors of ``tree``, in ``graphs.flatten``'s order."""
-    from zenslam_tpu_torch.pipeline.graphs import flatten
+    from zenslam_tpu_torch.utils.graphs import flatten
 
     leaves = []
     flatten(tree, leaves)
@@ -3371,7 +3667,7 @@ def slice_run(seq, dev, graphed: bool, states: bool) -> dict:
     import torch
 
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step
-    from zenslam_tpu_torch.pipeline.graphs import eager, fresh
+    from zenslam_tpu_torch.utils.graphs import eager, fresh
 
     cfg = SlamConfig()
     step = make_slam_step(cfg, seq.rig)
@@ -3424,7 +3720,7 @@ def profiled_frames(step, state, seq, first: int, n: int, graphed: bool) -> tupl
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
 
     with contextlib.nullcontext() if graphed else eager():
         torch.cuda.synchronize()
@@ -3479,14 +3775,28 @@ def keyframe_programs(s) -> dict:
     return {"snapshot": own and own.snapshot, "epoch": own and own.epoch,
             "kf_add": system._KF_ADD, "ba": system._WINDOWED_BA, "loop_gate": system._LOOP_GATE,
             "reloc_gate": system._RELOC_GATE, "pose_graph": system._POSE_GRAPH,
-            "spill_pack": system._PACK_LIVE, "reload": system._RELOAD,
-            "vocab": system._VOCAB, "retrain": system._RETRAIN}
+            "spill_pack": system._pack_live, "reload": system._RELOAD,
+            "vocab": (system.build_vocabulary_tree if s.bcfg.bow_levels == 2
+                      else system.build_vocabulary),
+            "retrain": system._RETRAIN}
+
+
+def nested_programs() -> dict:
+    """The library programs that the system's programs call in their
+    functions (inline there, by jit's nesting rule): name -> program."""
+    from zenslam_tpu_torch.backend.map_archive import reload_into_map
+    from zenslam_tpu_torch.pipeline import system
+
+    names = ("bundle_adjust", "bundle_adjust_cg", "dist_bundle_adjust", "shard_ba_problem_device",
+             "optimize_pose_graph", "kf_db_add", "descriptors_to_bow", "bow_db_add",
+             "bow_db_query")
+    return dict({n: getattr(system, n) for n in names}, reload_into_map=reload_into_map)
 
 
 def program_calls(s) -> dict:
     """Each program's calls so far (replays on the card, ``graphs.calls``),
     the snapshot and epoch programs ``s``'s own."""
-    from zenslam_tpu_torch.pipeline import graphs
+    from zenslam_tpu_torch.utils import graphs
 
     return {k: 0 if prog is None else graphs.calls(prog)
             for k, prog in keyframe_programs(s).items()}
@@ -3533,7 +3843,7 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
     import torch
 
     from zenslam_tpu_torch.pipeline import SlamConfig
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
     from zenslam_tpu_torch.pipeline.system import (
         BackendConfig, create_system, flush_pipeline, process_frame)
 
@@ -3578,7 +3888,7 @@ def epoch_once(s) -> None:
     carried by the change between its two newest keyframes' poses, through
     two ring entries graphed (twice each) and eager, bit-identical."""
     from zenslam_tpu_torch.pipeline import system
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
 
     db, snap = s.kf_db, s.last_kf_snap
     s._pg_delta = tuple(fresh((db.R[0], db.t[0], db.R[1], db.t[1])))
@@ -3607,7 +3917,7 @@ def vocab_once(s) -> None:
                                                         db.kp_valid[slot],
                                                         GeneratorDraw(7, s.device)),
              "retrain": lambda: system._retrain_vocab(s)}
-    progs = {"first train": system._VOCAB, "retrain": system._RETRAIN}
+    progs = {"first train": system.build_vocabulary_tree, "retrain": system._RETRAIN}
     for name, fn in calls.items():
         ms = {}
         for how in ("eager", "replay"):
@@ -3622,7 +3932,7 @@ def vocab_once(s) -> None:
 
 
 def phase_graphs(seq, dev) -> dict:
-    """``[graphs]``: the captured programs (``pipeline/graphs.py``) held
+    """``[graphs]``: the captured programs (``utils/graphs.py``) held
     against the same code under ``graphs.eager()`` in one process, the order
     alternated; where two eager runs part, graphed within their spread.
     Returns the launches of its graphed runs."""
@@ -3630,12 +3940,14 @@ def phase_graphs(seq, dev) -> dict:
 
     from zenslam_tpu_torch.eval.check_run import card_line
     from zenslam_tpu_torch.pipeline import SlamConfig
-    from zenslam_tpu_torch.pipeline import graphs, system
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.pipeline import system
+    from zenslam_tpu_torch.utils import graphs
+    from zenslam_tpu_torch.utils.graphs import eager
     from zenslam_tpu_torch.pipeline.system import BackendConfig
 
     t0 = time.perf_counter()
     card = card_line()
+    nested0 = {k: len(p.captured) for k, p in nested_programs().items()}
     # (a) the slice: eager, graphed, graphed, eager
     runs, peak, launches = [], {}, Counter()
     for i, graphed in enumerate((False, True, True, False)):
@@ -3778,6 +4090,10 @@ def phase_graphs(seq, dev) -> dict:
         print(f"[graphs] captures of {name} (warm-up + capture, ms, one a key; the snapshot "
               f"and epoch programs (b)'s system's): "
               f"{[round(c.capture_ms, 1) for c in prog.captured.values()]}")
+    nested = {k: len(p.captured) - nested0[k] for k, p in nested_programs().items()}
+    print(f"[graphs] captures of the library programs called inside the system's programs, "
+          f"over this phase (inline there, as jit inlines a nested jit): {nested}")
+    require(not any(nested.values()), f"graphs: a nested library program captured {nested}")
     print(f"[graphs] graphs held {graphs.graphs_held()}; phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3822,6 +4138,7 @@ def main() -> int:
         paths.update(phase_families(seq, dev))
         paths.update(phase_dist(seq, dev, dense))
         paths["scaling"] = phase_scaling(dev)
+        paths["solvers"] = phase_solvers(dev)
         lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err, rigs_lk_err,
                                 bench_lk_err)
         orb["max_abs_err"] = max(orb["max_abs_err"], rigs_orb_err, bench_orb_err)

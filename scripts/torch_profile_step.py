@@ -15,7 +15,7 @@ chip_smoke.py does), then over the measured frames reports:
    time of 2., the device kernels launched per frame, and the top operators
    by device time;
 4. the same for the captured step (``make_slam_step``: one CUDA graph,
-   ``pipeline/graphs.py``) from the same state on the same frames: wall
+   ``utils/graphs.py``) from the same state on the same frames: wall
    time unprofiled, device busy time, idle share, the kernels inside the
    graph per frame and the graph launches per frame, and the capture's ms.
 
@@ -57,7 +57,7 @@ def main() -> int:
 
     from zenslam_tpu_torch.io.synthetic import make_sequence
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step, slam_step
-    from zenslam_tpu_torch.pipeline import graphs
+    from zenslam_tpu_torch.utils import graphs
     from zenslam_tpu_torch.pipeline import step as step_mod
 
     if not torch.cuda.is_available():

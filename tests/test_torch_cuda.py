@@ -33,7 +33,7 @@ default-config ``slam_step`` makes no implicit synchronise; BA's planned
 block sums repeat bit for bit and equal ``index_add_`` on the CPU; the
 fused multiply-add of ``ops/image.py`` (what the blurs and ORB moments run
 on CUDA) is bit-identical to its float64 emulation. The captured programs
-(``pipeline/graphs.py``, CUDA graphs): ``make_slam_step`` over 8 frames at
+(``utils/graphs.py``, CUDA graphs): ``make_slam_step`` over 8 frames at
 512x384 bit-identical to its eager form with 2 LK + 1 ORB launches a frame
 counted through the replays, the dense and CG windows bit-identical to
 eager, and a capture that cannot succeed raises.
@@ -388,16 +388,19 @@ def test_cg_ba_on_card_matches_cpu_without_syncs(dev, kw):
 
 
 def _recording_draw(seed):
-    """A CPU ``draw`` that keeps what it drew, and one that replays it on a device."""
-    draw, seen = bow.GeneratorDraw(seed, "cpu"), []
+    """A CPU ``draw`` that keeps what it drew at each level, and one that
+    hands the same draws back on a device, by level (a captured program
+    runs its function twice, to warm up and to capture; the draws go up
+    before it runs)."""
+    draw, seen = bow.GeneratorDraw(seed, "cpu"), {}
 
     def record(level, weight, n, iters):
-        seen.append(draw(level, weight, n, iters))
-        return seen[-1]
+        seen[level] = draw(level, weight, n, iters)
+        return seen[level]
 
     def replay_on(dev):
-        it = iter(seen)
-        return lambda level, weight, n, iters: _to(next(it), dev)
+        on_dev = {level: _to(d, dev) for level, d in seen.items()}
+        return lambda level, weight, n, iters: on_dev[level]
 
     return record, replay_on
 
@@ -935,7 +938,7 @@ def test_fused_fma_bit_identical_to_float64_on_card(dev):
 
 
 def _tree_identical(a, b) -> bool:
-    from zenslam_tpu_torch.pipeline.graphs import flatten
+    from zenslam_tpu_torch.utils.graphs import flatten
 
     la, lb = [], []
     flatten(a, la)
@@ -950,7 +953,7 @@ def test_graphed_step_bit_identical_to_eager(dev):
     ``graphs.eager()``: every state and telemetry tensor bit-identical, and
     the replays count 2 LK + 1 ORB launches a frame (16 / 8)."""
     from zenslam_tpu_torch.pipeline import make_slam_step
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
 
     seq = make_sequence(np.random.default_rng(11), n_frames=8, motion="strafe",
                         device_render=True, device=dev)
@@ -977,7 +980,7 @@ def test_graphed_windows_bit_identical_to_eager(dev):
     """The windowed BA as a captured program, dense (W=8) and CG (W=24), on
     a 16-frame system's inputs at 512x384: outputs bit-identical to the
     eager window, on the first replay and the next."""
-    from zenslam_tpu_torch.pipeline.graphs import eager
+    from zenslam_tpu_torch.utils.graphs import eager
 
     seq = make_sequence(np.random.default_rng(11), n_frames=16, motion="strafe",
                         device_render=True, device=dev)
@@ -1002,7 +1005,7 @@ def test_failed_capture_raises(dev):
     """A program whose function reads the device (``float`` of a tensor, a
     synchronise) cannot be captured: the call raises, nothing is kept, and
     nothing falls back to the eager form."""
-    from zenslam_tpu_torch.pipeline.graphs import Program
+    from zenslam_tpu_torch.utils.graphs import Program
 
     def reads_back(x):
         return (x + float(x.sum()),)

@@ -1,4 +1,4 @@
-"""The captured programs (``zenslam_tpu_torch/pipeline/graphs.py``) on the
+"""The captured programs (``zenslam_tpu_torch/utils/graphs.py``) on the
 CPU, where a ``Program`` runs its function on its static buffers with the
 buffer logic that replays CUDA graphs on a card (the card's counterparts
 are in ``tests/test_torch_cuda.py``). At 96x128 with a small config:
@@ -56,9 +56,9 @@ from zenslam_tpu_torch.backend.map_archive import LandmarkArchive, _pack_live
 from zenslam_tpu_torch.geometry.lie import so3_exp
 from zenslam_tpu_torch.io.synthetic import make_sequence
 from zenslam_tpu_torch.ops import lk_cuda, orb_cuda
-from zenslam_tpu_torch.pipeline import graphs
+from zenslam_tpu_torch.utils import graphs
 from zenslam_tpu_torch.pipeline import system as psystem
-from zenslam_tpu_torch.pipeline.graphs import Program, eager, flatten
+from zenslam_tpu_torch.utils.graphs import Program, eager, flatten
 from zenslam_tpu_torch.pipeline.state import SlamConfig, init_state
 from zenslam_tpu_torch.pipeline.step import make_slam_step, slam_step
 from zenslam_tpu_torch.utils.device import upload_constant
@@ -275,11 +275,13 @@ def own_programs(monkeypatch):
     """The system's programs made anew for one test, so that the captured
     entries counted are the test's own (other test files in the same
     process capture their own shapes)."""
-    for name in ("_KF_ADD", "_POSE_GRAPH", "_PACK_LIVE", "_RELOAD", "_VOCAB", "_RETRAIN",
-                 "_WINDOWED_BA"):
+    for name in ("_KF_ADD", "_POSE_GRAPH", "_RELOAD", "_RETRAIN", "_WINDOWED_BA",
+                 "build_vocabulary_tree"):
         old = getattr(psystem, name)
         monkeypatch.setattr(psystem, name,
-                            Program(old.fn, old.static_argnames, old.donate_argnames))
+                            Program(old.fn, old.static_argnames, old.donate_argnames,
+                                    old.scalar_argnames, old.static_defaults,
+                                    old.copy_outputs))
 
 
 class _InPlaceStep:
@@ -486,7 +488,7 @@ def test_spill_pack_and_reload(seq, own_programs):
         g = torch.Generator().manual_seed(9)
         arch, lmap = _archive_and_map(g)
         with contextlib.nullcontext() if graphed else eager():
-            packed = psystem._PACK_LIVE(lmap).clone()
+            packed = _pack_live(lmap)
             res = []
             for radius in (3.2, 50.0):      # fewer than reload_max candidates, then more
                 lmap = arch.reload(lmap, torch.eye(3), torch.zeros(3), cam, 12, reload_max=16,
@@ -546,7 +548,8 @@ def test_vocabulary_train_and_retrain(seq, own_programs):
     assert _identical(out[True], out[False])
     assert out[True][1].next_slot.shape == () and int(out[True][1].next_slot) == 3
     assert not bool(out[True][1].valid[3])
-    assert _entries(psystem._VOCAB) == 3 and _entries(psystem._RETRAIN) == 1   # seeds 7, 8, 99
+    assert _entries(psystem.build_vocabulary_tree) == 3 and _entries(psystem._RETRAIN) == 1
+    # three first trains: seeds 7, 8 and the injected draw
 
 
 def _window_db(rig, g):

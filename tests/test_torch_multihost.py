@@ -5,9 +5,13 @@ tests/test_multihost.py (2 processes x 2 virtual devices).
 Each rank joins with ``init_multihost``, takes its block of the
 shard-ordered problem (``distribute_ba_problem``), solves with the
 reduced camera system all-reduced across the processes, and gathers the
-landmarks back (``gather_landmarks``). Checked: both ranks converge; ``t``
+landmarks back (``gather_landmarks``). ``dist_bundle_adjust`` is a captured
+program (``utils/graphs.py``): on the CPU each rank runs its buffer logic,
+collectives included. Checked: both ranks converge; ``t``
 equal across ranks to 1e-6 and the gathered xyz identical; ``make_ba_mesh``
-refuses 3 shards over 2 ranks; and the 2-rank result, a one-process
+refuses 3 shards over 2 ranks; on each rank a second call with other
+poses goes through the same capture, and both calls are bit-identical to
+their ``graphs.eager()`` runs; and the 2-rank result, a one-process
 4-shard port run and the reference's ``dist_bundle_adjust`` on
 ``make_ba_mesh(4)`` agree within 1e-4, on the problem of
 tests/multihost_worker.py:make_problem (rebuilt here for both packages).
@@ -77,6 +81,7 @@ def worker(rank: int, world: int, port: str) -> None:
     from zenslam_tpu_torch.parallel import (
         dist_bundle_adjust, distribute_ba_problem, gather_landmarks, global_ba_mesh,
         init_multihost, make_ba_mesh, shard_ba_problem)
+    from zenslam_tpu_torch.utils import graphs
 
     torch.set_num_threads(1)
     init_multihost(f"127.0.0.1:{port}", world, rank, local_shards=2, device="cpu")
@@ -90,6 +95,15 @@ def worker(rank: int, world: int, port: str) -> None:
     local = distribute_ba_problem(p, mesh)
     assert local.xyz.shape[0] == p.xyz.shape[0] // world
     res = dist_bundle_adjust(local, mesh, iterations=5)
+    moved = local._replace(t=local.t + 0.01)
+    again = dist_bundle_adjust(moved, mesh, iterations=5)
+    held = graphs.graphs_held()
+    with graphs.eager():
+        same = [all(torch.equal(x[k], y[k]) for k in x)
+                for x, y in ((res, dist_bundle_adjust(local, mesh, iterations=5)),
+                             (again, dist_bundle_adjust(moved, mesh, iterations=5)))]
+    print(f"CAPTURED {rank} held {held} calls {graphs.calls(dist_bundle_adjust)} "
+          f"eager-identical {same}", flush=True)
     xyz = gather_landmarks(res["xyz"], mesh)
     cb, ca = float(res["cost_before"]), float(res["cost_after"])
     print("RESULT " + json.dumps({"rank": rank, "cost_before": cb, "cost_after": ca,
@@ -135,6 +149,11 @@ def test_both_ranks_converge(runs):
     for i, (rc, out) in enumerate(runs):
         assert rc == 0, out[-3000:]
         assert f"MULTIHOST_OK {i}" in out and f"REFUSED_3 {i}" in out, out[-3000:]
+
+
+def test_captured_solver_on_each_rank_matches_eager(runs):
+    for i, (_, out) in enumerate(runs):
+        assert f"CAPTURED {i} held 1 calls 2 eager-identical [True, True]" in out, out[-3000:]
 
 
 def test_ranks_agree_and_match_single_process_and_reference(runs):

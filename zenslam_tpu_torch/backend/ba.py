@@ -11,10 +11,19 @@ the device.
 
 A failed Cholesky gives a zero pose step, as the reference's NaN factor
 does (``cholesky_ex`` reports the failure on the device instead of raising).
+
+Both solvers are captured programs (``utils/graphs.py``), as the reference
+jits them: on CUDA a direct call captures once per static arguments and
+shapes and replays, and returns results the caller owns. ``huber_delta``
+and ``init_lambda`` are keyed by value (the reference traces them): every
+caller passes 1.0 and 1e-3, so no second capture comes of it in practice.
+Called inside another program (the system's windowed BA, the trim's two
+halves) a solver runs inline.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,6 +31,7 @@ import torch
 from zenslam_tpu_torch.geometry.lie import so3_exp, so3_hat
 from zenslam_tpu_torch.geometry.polar import inv_spd
 from zenslam_tpu_torch.utils.device import resolve_device
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class BAProblem(NamedTuple):
@@ -358,6 +368,8 @@ def lm_schur(p: BAProblem, cost0, cost_fn, iterations: int, huber_delta: float,
     return R, t, xyz, cost, _count(accepts, p.R.device)
 
 
+@functools.partial(Program, static_argnames=("iterations", "cg_iters", "refine_landmarks"),
+                   copy_outputs=True)
 def bundle_adjust_cg(p: BAProblem, iterations: int = 10, cg_iters: int = 40,
                      huber_delta: float = 1.0, refine_landmarks: bool = True,
                      init_lambda: float = 1e-3):
@@ -450,6 +462,8 @@ def _count(flags, device):
     return torch.stack(flags).to(torch.int32).sum()
 
 
+@functools.partial(Program, static_argnames=("iterations", "refine_landmarks", "trim_threshold"),
+                   copy_outputs=True)
 def bundle_adjust(p: BAProblem, iterations: int = 15, huber_delta: float = 1.0,
                   refine_landmarks: bool = True, init_lambda: float = 1e-3,
                   trim_threshold: float | None = None):

@@ -13,10 +13,17 @@ from a seeded ``torch.Generator``, which a captured program seeds afresh
 on every call; a test hands in the reference's draws.
 All Hamming distances here are small integers, exact in f32, so quantisation
 and centres do not depend on the order of the sums.
+
+The public functions are captured programs (``utils/graphs.py``), as the
+reference jits them (``build_vocabulary``, ``build_vocabulary_tree``,
+``_bow_tree``/``_bow_flat``, ``bow_db_add``, ``bow_db_query``), with the
+reference's static arguments and the ``draw`` static; the frame indices
+and ``min_frame_gap`` are traced (Python ints go up as device scalars).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Union
 
 import numpy as np
@@ -25,6 +32,7 @@ import torch
 from zenslam_tpu_torch.backend.keyframes import _set_row
 from zenslam_tpu_torch.ops.match import unpack_bits
 from zenslam_tpu_torch.utils.device import resolve_device
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class Vocabulary(NamedTuple):
@@ -51,8 +59,9 @@ class GeneratorDraw:
     """A ``draw`` callable backed by a ``torch.Generator`` seeded by ``seed``
     on ``device``. Equal (and hashing alike) when seed and device are, so a
     captured program keys on the value; through a program
-    (``pipeline/graphs.py``) every call draws from the generator seeded
-    afresh (``seeded_generators``), as a new ``GeneratorDraw`` would."""
+    (``utils/graphs.py``) every call draws from the generator seeded
+    afresh (``seeded_generators``), as a new ``GeneratorDraw`` would. The
+    builders' default (``draw=None``) is ``GeneratorDraw(0, device)``."""
 
     def __init__(self, seed: int, device):
         self.seed, self.device = int(seed), torch.device(device)
@@ -111,16 +120,24 @@ def _kmeans_bits(bits, weight, n_words: int, iters: int, draws: KmeansDraws):
     return centers
 
 
+def _default_draw(device) -> GeneratorDraw:
+    return GeneratorDraw(0, device)
+
+
+@functools.partial(Program, static_argnames=("n_words", "iters", "draw"),
+                   static_defaults={"draw": _default_draw}, copy_outputs=True)
 def build_vocabulary(descriptors, valid, n_words: int = 256, iters: int = 8,
                      draw: Callable | None = None):
     """Flat binary k-means over packed (N, 8) descriptors; returns the
     (n_words, 256) float codebook."""
     bits = unpack_bits(descriptors)
     w = valid.to(torch.float32)
-    draw = draw or GeneratorDraw(0, bits.device)
+    draw = draw or _default_draw(bits.device)
     return _kmeans_bits(bits, w, n_words, iters, draw("flat", w, n_words, iters))
 
 
+@functools.partial(Program, static_argnames=("branch", "iters", "draw"),
+                   static_defaults={"draw": _default_draw}, copy_outputs=True)
 def build_vocabulary_tree(descriptors, valid, branch: int = 64, iters: int = 6,
                           draw: Callable | None = None) -> Vocabulary:
     """Two-level hierarchical binary k-means (branch² leaf words): level 1
@@ -128,7 +145,7 @@ def build_vocabulary_tree(descriptors, valid, branch: int = 64, iters: int = 6,
     k-means per cell, all cells at once."""
     bits = unpack_bits(descriptors)
     w = valid.to(torch.float32)
-    draw = draw or GeneratorDraw(0, bits.device)
+    draw = draw or _default_draw(bits.device)
     l1 = _kmeans_bits(bits, w, branch, iters, draw("l1", w, branch, iters))
     d = torch.where(valid[:, None], _hamming_to_centers(bits, l1), float("inf"))
     a1 = torch.argmin(d, dim=1)
@@ -164,6 +181,7 @@ def _histogram(word, valid, n_words: int):
     return hist / torch.where(norm < 1e-9, 1.0, norm)
 
 
+@functools.partial(Program, copy_outputs=True)
 def descriptors_to_bow(codebook: Union[Vocabulary, torch.Tensor], descriptors, valid):
     """Packed descriptors (…, N, 8) -> L2-normalised word histograms
     (…, n_words), under a tree ``Vocabulary`` or a flat (n_words, 256)
@@ -217,6 +235,7 @@ def bow_db_init(max_frames: int, n_words: int, device=None) -> BowDatabase:
         doc_freq=torch.zeros(n_words, dtype=torch.float32, device=device))
 
 
+@functools.partial(Program, scalar_argnames=("frame_idx",), copy_outputs=True)
 def bow_db_add(db: BowDatabase, hist, frame_idx) -> BowDatabase:
     """Insert a histogram at the ring pointer, keeping document frequencies."""
     s = db.next_slot
@@ -230,6 +249,8 @@ def bow_db_add(db: BowDatabase, hist, frame_idx) -> BowDatabase:
         next_slot=((s + 1) % db.hist.shape[0]).to(torch.int32), doc_freq=df)
 
 
+@functools.partial(Program, static_argnames=("top_k",),
+                   scalar_argnames=("query_frame_idx", "min_frame_gap"), copy_outputs=True)
 def bow_db_query(db: BowDatabase, hist, query_frame_idx, min_frame_gap: int = 30,
                  top_k: int = 5):
     """TF-IDF cosine query with temporal exclusion (frames within

@@ -5,16 +5,22 @@ Each keyframe keeps its feature table's rows (pixels, landmark slot and
 generation, landmark position at keyframe time, right-image pixels,
 descriptors). The same rows are the observations of the windowed BA.
 Descriptors are int32 tensors holding the reference's uint32 bit patterns.
+``kf_db_add`` and ``kf_db_update_poses`` are captured programs
+(``utils/graphs.py``), as the reference jits them; the frame index is
+traced (a Python int goes up as a device scalar: one capture serves every
+frame).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zenslam_tpu_torch.backend.ba import BAProblem
 from zenslam_tpu_torch.utils.device import resolve_device
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class KeyframeDB(NamedTuple):
@@ -59,6 +65,7 @@ def _set_row(arr, s, value):
     return arr.index_copy(0, s.reshape(1).long(), v.expand(arr.shape[1:]).unsqueeze(0))
 
 
+@functools.partial(Program, scalar_argnames=("frame_idx",), copy_outputs=True)
 def kf_db_add(db: KeyframeDB, R, t, kp_xy, kp_lm, kp_valid, kp_desc, frame_idx,
               kp_uvr=None, kp_stereo=None, kp_lm_gen=None, kp_xyz=None) -> KeyframeDB:
     """Insert a keyframe at the ring pointer (the oldest is evicted when full)."""
@@ -83,9 +90,11 @@ def kf_db_add(db: KeyframeDB, R, t, kp_xy, kp_lm, kp_valid, kp_desc, frame_idx,
         next_slot=((s + 1) % db.R.shape[0]).to(torch.int32))
 
 
+@functools.partial(Program, copy_outputs=True)
 def kf_db_update_poses(db: KeyframeDB, R, t) -> KeyframeDB:
-    """Write back optimised poses."""
-    return db._replace(R=R, t=t)
+    """Write back optimised poses (copied in: a graph with no kernel in it
+    is never captured)."""
+    return db._replace(R=R.clone(), t=t.clone())
 
 
 def covisibility(db: KeyframeDB, max_landmarks: int, threshold: int = 15):

@@ -14,17 +14,24 @@ it is this package's own copy of that host code. A reload's candidates go
 up in one pinned block of ``reload_max`` rows and its outcome comes back
 through a pinned copy behind an event, so it does not synchronise; the
 system runs its insert (``_reload_body``) as a captured program.
+``reload_into_map`` and ``_pack_live`` are captured programs
+(``utils/graphs.py``), as the reference jits them; the frame index and
+``protect_recent`` are traced (Python ints go up as device scalars).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from zenslam_tpu_torch.frontend.tables import allocate_landmark_slots, scatter_drop
 from zenslam_tpu_torch.utils.device import HostCopy, upload
+from zenslam_tpu_torch.utils.graphs import Program
 
 
+@functools.partial(Program, scalar_argnames=("frame_idx", "protect_recent"), copy_outputs=True)
 def reload_into_map(lmap, xyz, desc, valid, frame_idx, color=None, protect_recent: int = 2):
     """Insert (reload_max,)-padded archived landmarks into free or LRU slots;
     landmarks seen within ``protect_recent`` frames are not evicted. Returns
@@ -67,6 +74,7 @@ def _reload_body(lmap, cand):
     return new_lmap, aux
 
 
+@functools.partial(Program, copy_outputs=True)
 def _pack_live(lmap) -> torch.Tensor:
     """The live table as ONE (M, 6 + D) int32 matrix: valid, generation,
     xyz and colour as f32 bit patterns, then the descriptor (int32 words, or

@@ -6,16 +6,20 @@ residual is the smooth log of T_ij_meas⁻¹ ∘ T_i ∘ T_j⁻¹. Levenberg-Mar
 over left-multiplicative node increments. The reference takes the 6x6 edge
 Jacobians from ``jax.jacfwd`` under ``vmap``; here they are the same
 derivatives written out (``edge_jacobians``), batched over edges.
+``optimize_pose_graph`` is a captured program (``utils/graphs.py``), as the
+reference jits it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zenslam_tpu_torch.backend.ba import cholesky_solve_or_zero, seg_add_
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_exp, se3_inverse, so3_hat, so3_vee
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def _se3_log_smooth(R, t):
@@ -85,9 +89,11 @@ def edge_jacobians(Ri, ti, Rj, tj, Rm, tm):
     return Ji, Jj
 
 
+@functools.partial(Program, static_argnames=("iterations",), copy_outputs=True)
 def optimize_pose_graph(g: PoseGraph, iterations: int = 20, init_lambda: float = 1e-4):
     """LM Gauss-Newton over all node poses; returns R, t, cost_before,
-    cost_after and n_accepted."""
+    cost_after and n_accepted. A captured program: ``init_lambda`` is keyed
+    by value (the reference traces it; every caller passes the default)."""
     K = g.R.shape[0]
     dev = g.R.device
     free = g.node_valid & (~g.node_fixed)

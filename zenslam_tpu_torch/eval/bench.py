@@ -16,7 +16,7 @@ device (seed 11, speed 0.5):
 - primary: the step at 1024x1024 over 208 frames (8 untimed, 200 timed).
 
 The step is ``make_slam_step``'s captured program and the system's is its
-own (``pipeline/graphs.py``: CUDA graphs, the reference's jit), so the
+own (``utils/graphs.py``: CUDA graphs, the reference's jit), so the
 first untimed frame captures it.
 
 Each timed span ends in ``torch.cuda.synchronize``, where the reference
@@ -83,7 +83,7 @@ def run_fps(width, height, n_frames, n_warmup=8, seed=11, device=None, record=No
     the state before the last frame), ``step`` (the captured step) and
     ``launches`` (the kernels' launches over the timed frames)."""
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, make_slam_step
-    from zenslam_tpu_torch.pipeline.graphs import fresh
+    from zenslam_tpu_torch.utils.graphs import fresh
     from zenslam_tpu_torch.pipeline.state import split_telemetry
     from zenslam_tpu_torch.utils.device import resolve_device
 
@@ -200,7 +200,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from zenslam_tpu_torch.eval.check_run import card_line
-    from zenslam_tpu_torch.pipeline.graphs import graphs_held, graphs_on
+    from zenslam_tpu_torch.utils.graphs import graphs_held, graphs_on
     from zenslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)

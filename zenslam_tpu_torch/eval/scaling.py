@@ -5,10 +5,14 @@
 
 Times ``dist_bundle_adjust`` per LM iteration at 1, 2, 4 and 8 shards on a
 fixed problem: K=32 keyframes, M=16384 landmarks, O=131072 observations (8
-a landmark), the reference's draws (``make_problem``). Each shard count runs
-one untimed solve of 6 iterations, then 3 timed ones, each ended by a
-synchronise; prints ms per iteration, the cost before and after, and the
-reference's markdown table with the speedup over one shard.
+a landmark), the reference's draws (``make_problem``). The solver is timed
+as a caller gets it, a captured program (``utils/graphs.py``; one CUDA
+graph per shard count, as the reference times its jitted solver): each
+shard count runs one untimed solve of 6 iterations, which captures it,
+then 3 timed ones (replays), each ended by a synchronise; prints ms per
+iteration, the cost before and after, and the reference's markdown table
+with the speedup over one shard. ``graphs.eager()`` around ``time_solve``
+times the eager form.
 
 What the numbers mean on one card: ``make_ba_mesh(n)`` puts all n shards on
 this process's one device (a one-rank group, NCCL on CUDA), so the table
@@ -74,8 +78,9 @@ def make_problem(K=32, M=16384, obs_per_lm=8, seed=0, device=None):
 
 def time_solve(ps, mesh, iterations: int = ITERATIONS, repeats: int = REPEATS):
     """One untimed ``dist_bundle_adjust`` of the sharded problem ``ps`` on
-    ``mesh``, then ``repeats`` timed ones, each ended by a synchronise.
-    Returns (ms per LM iteration, the last solve's result)."""
+    ``mesh`` (on CUDA it captures the solver), then ``repeats`` timed ones
+    (replays; eager calls under ``graphs.eager()``), each ended by a
+    synchronise. Returns (ms per LM iteration, the last solve's result)."""
     from zenslam_tpu_torch.parallel import dist_bundle_adjust
 
     def solve():
@@ -121,7 +126,7 @@ def main(argv=None) -> int:
     finally:
         if owned and tdist.is_initialized():   # the one-rank group make_ba_mesh made
             tdist.destroy_process_group()
-    print(f"\n| shards (one {dev.type} device) | ms/iteration | speedup |")
+    print(f"\n| shards (one {dev.type} device, captured solver) | ms/iteration | speedup |")
     print("|---|---|---|")
     for n, ms, _, _ in rows:
         print(f"| {n} | {ms:.2f} | {rows[0][1] / ms:.2f}x |")

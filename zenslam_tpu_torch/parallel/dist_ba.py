@@ -18,12 +18,20 @@ Layout (``BAMesh``):
 - observations: the rank's ``local_shards`` blocks of ``obs_per_shard``
   rows, each observation in its landmark's shard with a shard-LOCAL
   landmark index;
-- per iteration: one ``all_reduce`` of (U, g_p, S_off, g_off), K²·36 + K·12
+- per iteration: one ``all_reduce`` of (U, g_p, S_off, g_off), K²·36 + K·48
   floats, and one of the candidate's cost (plus one for the initial cost).
+
+``dist_bundle_adjust`` and ``shard_ba_problem_device`` are captured programs
+(``utils/graphs.py``), as the reference jits them: on CUDA a direct call
+captures once per static arguments and shapes, the all-reduces inside the
+graph, and replays; on every rank of a group at the same call. Their
+outputs are the caller's. ``collectives`` counts the all-reduces a solve
+makes, replays included.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -32,6 +40,7 @@ import torch.distributed as dist
 
 from zenslam_tpu_torch.backend.ba import BAProblem, ba_cost, lm_schur
 from zenslam_tpu_torch.utils.device import resolve_device
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class BAMesh(NamedTuple):
@@ -129,6 +138,7 @@ def shard_ba_problem(p: BAProblem, n_shards: int, obs_per_shard: int | None = No
                       obs_valid=dev_t(new_ok))
 
 
+@functools.partial(Program, static_argnames=("n_shards", "obs_per_shard"), copy_outputs=True)
 def shard_ba_problem_device(p: BAProblem, n_shards: int, obs_per_shard: int):
     """Device-side counterpart of ``shard_ba_problem`` (the reference's
     ``shard_ba_problem_jit``), what the live ``ba_solver="dist"`` path uses:
@@ -170,11 +180,27 @@ def shard_ba_problem_device(p: BAProblem, n_shards: int, obs_per_shard: int):
     return ps, n_dropped
 
 
+class _Collectives:
+    """The sharded solver's all-reduces (``calls``) and the floats they
+    reduce (``floats``), counted where each is issued; a captured
+    program's replay adds what its capture issued."""
+
+    calls = 0
+    floats = 0
+
+
+collectives = _Collectives()
+
+
 def _all_reduce(x, mesh: BAMesh):
+    collectives.calls += 1
+    collectives.floats += x.numel()
     dist.all_reduce(x, group=mesh.group)
     return x
 
 
+@functools.partial(Program, static_argnames=("mesh", "iterations", "refine_landmarks"),
+                   copy_outputs=True)
 def dist_bundle_adjust(p: BAProblem, mesh: BAMesh, iterations: int = 15,
                        huber_delta: float = 1.0, refine_landmarks: bool = True,
                        init_lambda: float = 1e-3):
@@ -193,7 +219,12 @@ def dist_bundle_adjust(p: BAProblem, mesh: BAMesh, iterations: int = 15,
     fails or is not finite — the reference's cholesky of S + 1e-8 I with
     non-finite steps zeroed gives the same answer on an SPD system and a
     zero step otherwise
-    (tests/test_torch_backend.py::test_cholesky_failure_gives_zero_step)."""
+    (tests/test_torch_backend.py::test_cholesky_failure_gives_zero_step).
+
+    A captured program keyed, besides ``mesh``, ``iterations`` and
+    ``refine_landmarks`` (the reference's static arguments), on
+    ``huber_delta`` and ``init_lambda`` by value: callers pass one value of
+    each (1.0 and 1e-3), so this costs no second capture in practice."""
     L = mesh.local_shards
     M_loc, O_loc = p.xyz.shape[0], p.obs_kf.shape[0]
     if M_loc % L or O_loc % L:
@@ -209,7 +240,7 @@ def dist_bundle_adjust(p: BAProblem, mesh: BAMesh, iterations: int = 15,
 
     def all_sum(*parts):
         # the one collective of an LM step: the reduced camera system's
-        # parts, K²·36 + K·12 floats, in one buffer
+        # parts, K²·36 + K·48 floats, in one buffer
         buf = _all_reduce(torch.cat([x.reshape(-1) for x in parts]), mesh)
         return [y.reshape(x.shape) for x, y in zip(parts, buf.split([x.numel() for x in parts]))]
 

@@ -15,7 +15,12 @@ the process layer:
   every rank after the solve.
 
 A rank per GPU is the deployment; N gloo processes on the CPU are the test
-harness (NCCL refuses two ranks on one GPU).
+harness (NCCL refuses two ranks on one GPU). ``dist_bundle_adjust`` over
+``global_ba_mesh()`` is a captured program on each rank, as on a one-rank
+group: the first call warms up (creating the communicator) and captures
+on every rank at once, since every rank calls with the same key; later
+calls replay, the all-reduces inside each rank's graph. On the CPU each
+rank runs the programs' buffer logic.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """State tables, the per-frame SLAM step, the sequence runner and the full
-keyframe system; ``eager`` (``pipeline/graphs.py``) runs the captured
+keyframe system; ``eager`` (``utils/graphs.py``) runs the captured
 programs as plain PyTorch, the counterpart of ``jax.disable_jit``."""
 
 from zenslam_tpu_torch.pipeline.state import (
@@ -11,7 +11,7 @@ from zenslam_tpu_torch.pipeline.state import (
     SlamState,
     init_state,
 )
-from zenslam_tpu_torch.pipeline.graphs import eager
+from zenslam_tpu_torch.utils.graphs import eager
 from zenslam_tpu_torch.pipeline.step import make_slam_step, slam_step
 from zenslam_tpu_torch.pipeline.runner import run_sequence
 from zenslam_tpu_torch.pipeline.system import (

@@ -61,7 +61,7 @@ from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
 from zenslam_tpu_torch.ops.sift import sift_descriptors
 from zenslam_tpu_torch.pipeline import lines_step as LS
-from zenslam_tpu_torch.pipeline.graphs import Program, flatten, fresh, graphs_on
+from zenslam_tpu_torch.utils.graphs import Program, flatten, fresh, graphs_on
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
     frame_generator, pack_telemetry, pyramid_dtype, resolve_use_kernels)
@@ -564,7 +564,7 @@ def _pnp_width(cfg: SlamConfig) -> int:
 
 
 class SlamStep:
-    """The per-frame step as a captured program (``pipeline/graphs.py``), the
+    """The per-frame step as a captured program (``utils/graphs.py``), the
     counterpart of the reference's jitted ``slam_step`` with
     ``donate_argnames=("state",)``: one CUDA graph per (config, rig, image
     shape, IMU batch shape or none), replayed on every later frame.

@@ -14,7 +14,7 @@ counterpart of ``zenslam_tpu/pipeline/system.py``.
 Host control flow decides when (keyframe flags from telemetry); the math is
 tensor code on the system's device. As in the reference, where each piece is
 one jitted fixed-shape program, every piece runs on CUDA as a captured
-program (``pipeline/graphs.py``: one CUDA graph per static arguments and
+program (``utils/graphs.py``: one CUDA graph per static arguments and
 shapes, replayed): the step, the keyframe snapshot (a ring of
 ``telemetry_lag + 1`` programs, one per queued frame, and one for immediate
 use) and its epoch correction, the keyframe insert with its odometry edge,
@@ -25,10 +25,15 @@ pose and the map, the spill's packing, the archive's reload
 the re-quantisation. The programs whose outputs a system keeps past their
 next call (the step's state, the queued snapshots) are the system's own,
 made on first use; the others are shared, and what a caller keeps of them
-is copied (``fresh``). What stays eager is host work: the frustum gate and
-the archive's upserts (numpy), the decisions, stacking the pose-graph
-edges, and ``slam_step`` itself (the function the tests hold every program
-to). ``graphs.eager()`` runs everything eagerly.
+is copied (``fresh``). The spill's packing and the first vocabulary are
+the library's programs (``_pack_live``, the builders), whose outputs are
+the caller's; the library functions that the system's programs call in
+their bodies (the solvers, the keyframe and BoW functions) run inline
+there, as jit inlines a nested jit (``utils/graphs.py``). What stays
+eager is host work: the frustum gate and the archive's upserts (numpy),
+the decisions, stacking the pose-graph edges, and ``slam_step`` itself
+(the function the tests hold every program to). ``graphs.eager()`` runs
+everything eagerly.
 
 Device->host reads that the reference starts with ``copy_to_host_async``
 start here as copies into pinned memory behind a CUDA event (``HostCopy``)
@@ -71,7 +76,7 @@ from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse
 from zenslam_tpu_torch.ops.match import lsh_binarize, match_descriptors
 from zenslam_tpu_torch.parallel.dist_ba import (
     dist_bundle_adjust, make_ba_mesh, shard_ba_problem_device)
-from zenslam_tpu_torch.pipeline.graphs import Program, fresh
+from zenslam_tpu_torch.utils.graphs import Program, fresh
 from zenslam_tpu_torch.pipeline.state import (
     MotionModel, SlamConfig, SlamState, init_state, resolve_device, unpack_telemetry)
 from zenslam_tpu_torch.pipeline.step import SlamStep
@@ -209,14 +214,12 @@ def bow_n_words(bcfg: BackendConfig) -> int:
 
 
 def _vocab_body(desc, valid, levels: int, branch: int, words: int, draw: Callable):
-    """The configured vocabulary over packed descriptors (the reference's
-    jitted ``build_vocabulary_tree`` / ``build_vocabulary``)."""
+    """The configured vocabulary over packed descriptors: the builder's
+    captured program (the reference's jitted ``build_vocabulary_tree`` /
+    ``build_vocabulary``), inline inside the retrain's."""
     if levels == 2:
         return build_vocabulary_tree(desc, valid, branch=branch, iters=6, draw=draw)
     return build_vocabulary(desc, valid, n_words=words, iters=6, draw=draw)
-
-
-_VOCAB = Program(_vocab_body, static_argnames=("levels", "branch", "words", "draw"))
 
 
 def _vocab_shape(bcfg: BackendConfig) -> dict:
@@ -224,9 +227,9 @@ def _vocab_shape(bcfg: BackendConfig) -> dict:
 
 
 def _train_vocab(bcfg: BackendConfig, desc, valid, draw: Callable):
-    """The first vocabulary, trained on one keyframe's descriptors as one
-    captured program; fresh."""
-    return fresh(_VOCAB(desc, valid, draw=draw, **_vocab_shape(bcfg)))
+    """The first vocabulary, trained on one keyframe's descriptors by the
+    builder's captured program (the caller's to keep)."""
+    return _vocab_body(desc, valid, draw=draw, **_vocab_shape(bcfg))
 
 
 def create_system(cfg: SlamConfig, bcfg: BackendConfig, rig: StereoRig, image_shape,
@@ -424,7 +427,6 @@ def _windowed_ba_body(db: KeyframeDB, lmap_xyz, lmap_valid, lmap_gen, R_cw, t_cw
 
 
 _WINDOWED_BA = Program(_windowed_ba_body, static_argnames=("W", "solver", "iterations", "mesh"))
-_PACK_LIVE = Program(_pack_live)     # the spill's packing (the reference's jitted _pack_live)
 _RELOAD = Program(_reload_body)     # the archive reload's insert (the reference's jitted one)
 
 
@@ -957,10 +959,9 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
             backend_info["loop"] = _try_loop_closure(sys, slot, frame_idx, packed=pending_loop)
     mark("resolve_sync")
     if sys.bcfg.enable_map_spill and sys.archive is not None:
-        # the packed table is the program's static output, overwritten by its
-        # next replay (the next keyframe's); HostCopy's copy is queued on the
-        # same stream before that replay, so it reads this one
-        spill = HostCopy(_PACK_LIVE(sys.state.lmap))
+        # the packed table (``_pack_live``'s captured program; the caller's)
+        # goes to the host behind an event, read a keyframe later at most
+        spill = HostCopy(_pack_live(sys.state.lmap))
         mark("spill_pack")
         sys._pending_spill = spill
         if sys.bcfg.spill_resolve_lag == 0:

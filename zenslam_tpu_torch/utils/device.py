@@ -26,7 +26,7 @@ def upload_constant(a, device) -> torch.Tensor:
     """The host array or CPU tensor ``a`` on ``device``, uploaded once per
     (value, device) and cached: every later call with an equal value returns
     the same tensor, which callers must not modify. A captured program
-    (``pipeline/graphs.py``) thus reads the cached tensor, never a pinned
+    (``utils/graphs.py``) thus reads the cached tensor, never a pinned
     host block freed after its capture. The upload to a CUDA device goes
     from pinned memory without blocking, so it does not synchronise."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)

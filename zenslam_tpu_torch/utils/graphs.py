@@ -1,8 +1,8 @@
 """Captured programs — the counterpart of ``jax.jit(fn, static_argnames=...,
 donate_argnames=...)`` as the reference applies it to ``slam_step``, the
-windowed BA (dense, CG and sharded), the loop and relocalisation gates and
-the keyframe path's smaller programs (``pipeline/system.py``,
-``backend/map_archive.py``).
+keyframe path's programs (``pipeline/system.py``) and the back end's public
+solvers at their own entry points (``backend/ba.py``, ``pose_graph.py``,
+``bow.py``, ``keyframes.py``, ``map_archive.py``, ``parallel/dist_ba.py``).
 
 On CUDA a ``Program`` captures its function into a CUDA graph once for each
 combination of its static arguments, of its inputs' structure, non-tensor
@@ -12,7 +12,12 @@ that graph on every later call:
 
 - The inputs live in static buffers that the program owns. A call copies in
   every tensor whose storage is not already its buffer, in one
-  ``torch._foreach_copy_``.
+  ``torch._foreach_copy_``. The caller's tensors are never written.
+- Traced scalars (``scalar_argnames``): a Python int passed there goes up as
+  a 0-d int64 device tensor, all of a call's in one upload from pinned
+  memory that does not synchronise, so one capture serves every value (as
+  jit traces a Python int it is not told is static). Other non-tensor
+  leaves are part of the key by value.
 - A donated argument's new value (the matching leading element of the
   function's output tuple) is copied, at the end of the graph, into that
   argument's own buffers, and the call returns those buffers: given back to
@@ -20,25 +25,38 @@ that graph on every later call:
   part of the graph, so it costs no launch of its own.
 - The other outputs are the graph's static outputs: each call overwrites the
   previous call's. A caller that keeps one past the next call copies it
-  (``fresh``).
+  (``fresh``). With ``copy_outputs`` the program does so itself: what it
+  returns is the caller's, as a jitted function's fresh arrays are (the
+  back end's public entry points).
 - The first call warms the function up on a side stream, on the buffers
   (copies of the caller's tensors, so the warm-up never touches the
   caller's state), then captures it. A capture that fails raises; nothing
   falls back to the eager form.
-- The hand kernels' launch counters (``lk_ragged.launches``,
-  ``orb_steered_brief.launches``) count Python calls, which a replay does
-  not make: the capture records each counter's increase and every call adds
-  it. The warm-up and the capture themselves count nothing.
+- Nesting (jit's rule): a program called while another program's function
+  runs (its warm-up, its capture, its CPU run, or its call under
+  ``eager()``) runs its own function inline, with no key, buffers, capture,
+  counters or generator seeding of its own: the outer program is what it
+  would be with a plain function there.
+- Counters that count Python calls, which a replay does not make: the hand
+  kernels' launches (``lk_ragged.launches``, ``orb_steered_brief.launches``)
+  and the sharded solver's all-reduces and their floats
+  (``parallel/dist_ba.py:collectives``). The capture records each
+  counter's increase and every call adds it. The warm-up and the capture
+  themselves count nothing.
 - Random draws: a static argument with a ``seeded_generators()`` method
   (``backend/bow.py:GeneratorDraw``) names ``torch.Generator``s and their
   seeds. Each is seeded afresh before every run of the function (the
   warm-up, the capture, every replay, every CPU run and every call under
   ``eager()``), so each call draws what a freshly seeded generator draws,
   bit for bit; a capture registers each with its graph, whose replays
-  read the generator's seed and offset as they stand at the replay.
-- A collective (``torch.distributed.all_reduce`` on a one-rank NCCL group)
-  is captured as any kernel is: the warm-up call creates the
-  communicator before the capture.
+  read the generator's seed and offset as they stand at the replay. A
+  static argument left None can be given a default made on the inputs'
+  device (``static_defaults``), so that a default generator is one the
+  graph knows.
+- A collective (``torch.distributed.all_reduce`` on an NCCL group) is
+  captured as any kernel is: the warm-up call creates the communicator
+  before the capture, and every rank of the group captures at the same
+  call, since every rank makes the same calls with the same keys.
 
 On the CPU the same buffer logic runs the function on the buffers instead
 of replaying a graph, so the CPU tests exercise it.
@@ -53,12 +71,17 @@ from __future__ import annotations
 import contextlib
 import functools
 import inspect
+import numbers
 import time
 import weakref
 
+import numpy as np
 import torch
 
+from zenslam_tpu_torch.utils.device import upload
+
 _EAGER_DEPTH = 0
+_INLINE_DEPTH = 0    # programs' functions running now: a program called inside runs inline
 _PROGRAMS = weakref.WeakSet()
 _TENSOR = object()   # a tensor's place in a flattened tree
 _LEAF = object()     # a non-tensor leaf (part of the key)
@@ -81,21 +104,40 @@ def graphs_on() -> bool:
     return _EAGER_DEPTH == 0
 
 
+@contextlib.contextmanager
+def _running():
+    """A program's function runs inside the block: programs it calls run
+    inline (jit's nesting rule)."""
+    global _INLINE_DEPTH
+    _INLINE_DEPTH += 1
+    try:
+        yield
+    finally:
+        _INLINE_DEPTH -= 1
+
+
 def _counters() -> tuple:
+    """(object, attribute) of every counter a replay must advance."""
     from zenslam_tpu_torch.ops.lk_cuda import lk_ragged
     from zenslam_tpu_torch.ops.orb_cuda import orb_steered_brief
+    from zenslam_tpu_torch.parallel.dist_ba import collectives
 
-    return lk_ragged, orb_steered_brief
+    return ((lk_ragged, "launches"), (orb_steered_brief, "launches"), (collectives, "calls"),
+            (collectives, "floats"))
+
+
+def _read_all() -> tuple:
+    return tuple(getattr(c, a) for c, a in _counters())
 
 
 def read_counters() -> tuple:
     """The hand kernels' launch counts, (LK, ORB)."""
-    return tuple(c.launches for c in _counters())
+    return _read_all()[:2]
 
 
 def _set_counters(values) -> None:
-    for c, v in zip(_counters(), values):
-        c.launches = v
+    for (c, a), v in zip(_counters(), values):
+        setattr(c, a, v)
 
 
 def flatten(tree, leaves: list):
@@ -194,7 +236,7 @@ class _Captured:
         self.graph = None
         self.out_spec = None
         self.outs = None
-        self.launches = (0, 0)
+        self.launches = (0,) * len(_counters())
         self.capture_ms = 0.0
         self.calls = 0
 
@@ -236,28 +278,29 @@ class _Captured:
     def capture(self) -> None:
         """Warm up, then capture (CUDA); on the CPU the first run."""
         fn = self.fn
-        saved = read_counters()
+        saved = _read_all()
         t0 = time.perf_counter()
         try:
             _reseed(self.generators)
             if not self.cuda:
                 before = saved
-                self.out_spec, self.outs = self._donate(fn(**self._args()))
+                with _running():
+                    self.out_spec, self.outs = self._donate(fn(**self._args()))
             else:
                 side = _side_stream(self.dev)
                 side.wait_stream(torch.cuda.current_stream(self.dev))
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), _running():
                     fn(**self._args())                     # the warm-up: results dropped
                 torch.cuda.current_stream(self.dev).wait_stream(side)
-                before = read_counters()
+                before = _read_all()
                 graph = torch.cuda.CUDAGraph()
                 for g, _ in self.generators:
                     graph.register_generator_state(g)
                 _reseed(self.generators)
-                with torch.cuda.graph(graph, stream=side):
+                with torch.cuda.graph(graph, stream=side), _running():
                     self.out_spec, self.outs = self._donate(fn(**self._args()))
                 self.graph = graph
-            self.launches = tuple(a - b for a, b in zip(read_counters(), before))
+            self.launches = tuple(a - b for a, b in zip(_read_all(), before))
         finally:
             _set_counters(saved)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -278,42 +321,61 @@ class _Captured:
             self.capture()
         else:
             _reseed(self.generators)
-            saved = read_counters()
+            saved = _read_all()
             try:
-                _, outs = self._donate(self.fn(**self._args()))
+                with _running():
+                    _, outs = self._donate(self.fn(**self._args()))
             finally:
                 _set_counters(saved)
             keep = [(a, b) for a, b in zip(self.outs, outs) if not _same_memory(a, b)]
             _copy([a for a, _ in keep], [b for _, b in keep])
-        _set_counters(tuple(c + d for c, d in zip(read_counters(), self.launches)))
+        _set_counters(tuple(c + d for c, d in zip(_read_all(), self.launches)))
         return unflatten(self.out_spec, iter(self.outs))
+
+
+def _traced_int(v) -> bool:
+    return isinstance(v, numbers.Integral) and not isinstance(v, (bool, np.bool_))
 
 
 class Program:
     """``fn`` captured once per key and replayed (see the module docstring).
     ``static_argnames``: arguments that are part of the key by value (jit's
     ``static_argnames``); ``donate_argnames``: arguments whose new values lead
-    ``fn``'s output tuple, in that order, and take over their buffers."""
+    ``fn``'s output tuple, in that order, and take over their buffers;
+    ``scalar_argnames``: arguments whose Python ints reach ``fn`` as 0-d
+    int64 device tensors, not part of the key; ``static_defaults``: static
+    argument -> ``make(device)``, the value that stands for None there;
+    ``copy_outputs``: return copies the caller owns instead of the static
+    outputs."""
 
-    def __init__(self, fn, static_argnames=(), donate_argnames=()):
+    def __init__(self, fn, static_argnames=(), donate_argnames=(), scalar_argnames=(),
+                 static_defaults=None, copy_outputs: bool = False):
         functools.update_wrapper(self, fn)
         self.fn = fn
         self.signature = inspect.signature(fn)
         self.static_argnames = tuple(static_argnames)
         self.donate_argnames = tuple(donate_argnames)
+        self.scalar_argnames = tuple(scalar_argnames)
+        self.static_defaults = dict(static_defaults or {})
+        self.copy_outputs = copy_outputs
         self.captured: dict = {}
         _PROGRAMS.add(self)
 
     def __call__(self, *args, **kwargs):
+        if _INLINE_DEPTH:        # inside another program's function: inlined, as jit does
+            return self.fn(*args, **kwargs)
         bound = self.signature.bind(*args, **kwargs)
         bound.apply_defaults()
         static = {n: bound.arguments[n] for n in self.static_argnames}
         if not graphs_on():
             _reseed(_generators(static))
-            return self.fn(*args, **kwargs)
+            with _running():
+                return self.fn(*args, **kwargs)
+        ints = {n: bound.arguments[n] for n in self.scalar_argnames
+                if _traced_int(bound.arguments[n])}
         leaves, specs, ranges = [], {}, {}
         for name, value in bound.arguments.items():
-            if name in static:
+            if name in static or name in ints:
                 continue
             lo = len(leaves)
             specs[name] = flatten(value, leaves)
@@ -323,6 +385,15 @@ class Program:
         dev = leaves[0].device
         if any(t.device != dev for t in leaves):
             raise ValueError(f"{self.__name__}: every tensor input must be on one device")
+        if ints:    # one upload for the call's traced ints
+            up = upload(np.array([int(v) for v in ints.values()], np.int64), dev)
+            for i, name in enumerate(ints):
+                specs[name] = _TENSOR
+                ranges[name] = (len(leaves), len(leaves) + 1)
+                leaves.append(up[i])
+        for name, make in self.static_defaults.items():
+            if static[name] is None:
+                static[name] = make(dev)
         key = (tuple(static.items()), tuple(specs.items()),
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves), _settings())
         entry = self.captured.get(key)
@@ -331,7 +402,12 @@ class Program:
             if entry.cuda:
                 entry.capture()
             self.captured[key] = entry
-        return entry(leaves)
+        out = entry(leaves)
+        if not self.copy_outputs:
+            return out
+        outs = []
+        spec = flatten(out, outs)
+        return unflatten(spec, iter([t.clone() for t in outs]))
 
 
 def graphs_held() -> int:
