@@ -20,7 +20,10 @@ Phases (each one fatal on failure):
    the two Gaussian blurs and the Scharr gradients of its four pyramid
    levels and of the ORB moments, and the keypoints, descriptors and poses
    of FMA_FRAMES ``slam_step`` frames, must be bit-identical; the ORB
-   smoothing blur's device ms both ways;
+   smoothing blur's device ms both ways; the blurs are captured programs,
+   and the multiply-add form is part of their key, so the float64 blurs
+   must capture anew (the comparison would otherwise replay the fused
+   graphs against themselves);
 4b. api: the verify skill's library recipe through the port's public
    imports (``zenslam_tpu_torch.geometry``, ``.estimation``, ``.ops``,
    ``.pipeline``): a ``default_rig`` and 512 random points, each
@@ -33,7 +36,9 @@ Phases (each one fatal on failure):
    frame 0 -> 1 within 1e-3 px of its CPU run on the tracks ok in both
    >= 96 px from the border, ``make_slam_step`` over API_FRAMES frames
    bit-identical to ``slam_step`` with 2 LK + 1 ORB launches a frame; the
-   implicit synchronises of the new functions' second calls by line;
+   implicit synchronises of the new functions' second calls by line; the
+   library calls (``pyramidal_lk``, ``build_pyramid``, the two-view
+   solvers) run their captured programs;
 4c. rigs: the captured step (``make_slam_step``) at
    ``scripts/trace_check.py``'s four rigs (RIGS:
    96x128 default, 128x160 with CLAHE and pose fusion, 96x128 with
@@ -127,7 +132,10 @@ Phases (each one fatal on failure):
    then every program's capture ms, and that the library programs the
    system's programs call in their functions (the solvers, the keyframe,
    BoW and reload functions) captured nothing over the phase: inline
-   there, as jit inlines a nested jit. Where two eager runs part, graphed
+   there, as jit inlines a nested jit; nor did the front end's, IMU's and
+   estimators' programs, which the step and the eager ``slam_step`` run
+   inline (no capture and no call of their own over the phase, and no
+   capture by the eager slice runs). Where two eager runs part, graphed
    is held within their spread and the outputs are named;
 8. kidnap: ``tests/test_place_recognition.py``'s kidnap run (112-frame
    448x336 orbit, frames 80-95 skipped, run up to frame KIDNAP_END; the
@@ -291,15 +299,29 @@ Phases (each one fatal on failure):
    other traced ints through the same capture; host ms of the first call
    (the capture) and of SOLVER_REPEATS calls each way, captures, graphs
    held and peak memory;
+13c. frontend: every library function that the reference jits in its
+   front end, IMU, estimators, telemetry and device render (the 40 of
+   ``ops/``, ``imu/``, ``estimation/``, ``pipeline/state.py:pack_telemetry``
+   and ``io/synthetic.py:_render_view_device``), called directly at the
+   default ``SlamConfig``'s sizes on the 1024² frames (512 keypoints, an
+   8192-slot map, keylines as ``options/euroc_mh_lines.yaml``, 200 Hz IMU
+   against 20 Hz frames), as ``[solvers]`` holds the back end: bit-identical
+   to ``graphs.eager()``, the first output unchanged by a second call with
+   other values and other traced floats (``t0``/``t1``, ``dt01``/``dt12``)
+   through the same capture, the inputs unwritten; host ms of the capture
+   and of SOLVER_REPEATS calls each way, captures, graphs held, peak
+   memory; no hand kernel launched;
 14. the seconds of all phases, a ``kernels`` JSON line (``launches`` is the
    system phase's count, ``launches_by_path`` every path's), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
-The step, the keyframe path's programs and the back end's public solvers
-run as captured programs wherever ``process_frame``, ``make_slam_step``,
-``eval/bench.py``, ``eval/scaling.py``, the app or a direct call run them
-(a program inside another's function runs inline); what calls ``slam_step`` itself
+The step, the keyframe path's programs, the back end's public solvers and
+the front end's library functions run as captured programs wherever
+``process_frame``, ``make_slam_step``, ``eval/bench.py``,
+``eval/scaling.py``, the app or a direct call run them (a program inside
+another's function, the eager ``slam_step`` or a foreign CUDA-graph
+capture such as ``time_device``'s runs inline); what calls ``slam_step`` itself
 (fma, the lines and families warm-up frames whose implicit synchronises
 are read, the re-run frames whose kernel inputs are recorded, the branch
 costs) runs the eager function.
@@ -839,6 +861,7 @@ def phase_fma(seq, dev) -> None:
     from zenslam_tpu_torch.ops.lk import build_ragged_pyramid_pair
     from zenslam_tpu_torch.ops.orb import orb_moments
     from zenslam_tpu_torch.pipeline import SlamConfig, init_state, slam_step
+    from zenslam_tpu_torch.utils.graphs import graphs_held
 
     t0 = time.perf_counter()
     levels, _ = build_ragged_pyramid_pair(seq.left[0], seq.right[0], 3)
@@ -864,9 +887,15 @@ def phase_fma(seq, dev) -> None:
                          "pose": torch.cat([tel.R_cw.reshape(-1), tel.t_cw])})
         return rows
 
+    held0 = graphs_held()
     fused, fused_steps = blurs(), steps()
+    held1 = graphs_held()
     with f64_fma():
         emulated, emulated_steps = blurs(), steps()
+    # the blurs are captured programs: the multiply-add form is part of every
+    # program's key (utils/graphs.py:_settings), so the float64 blurs capture
+    # anew instead of replaying the fused graphs
+    new_fused, new_emulated = held1 - held0, graphs_held() - held1
     differ = {k: int((fused[k] != emulated[k]).sum()) for k in fused}
     n_el = sum(v.numel() for v in fused.values())
     step_differ = Counter()
@@ -882,6 +911,9 @@ def phase_fma(seq, dev) -> None:
           + ", ".join(f"{k} {v}" for k, v in differ.items()))
     print(f"[fma] slam_step over {FMA_FRAMES} frames, fused vs float64: elements differing "
           f"{dict(step_differ)}")
+    print(f"[fma] captures by the blurs and the eager steps: fused {new_fused}, float64 "
+          f"{new_emulated} (the multiply-add form is in each program's key: the float64 blurs "
+          f"are captured anew, not the fused graphs replayed)")
     print(f"[fma] ORB smoothing blur (sigma 2, radius 4) on the 1024x1024 frame, device ms per "
           f"call (CUDA graph of {DEVICE_CALLS}): fused {ms['fused']['median']:.5f} "
           f"{ms['fused']['spread']}, float64 {ms['float64']['median']:.5f} "
@@ -890,6 +922,9 @@ def phase_fma(seq, dev) -> None:
     require(sum(differ.values()) == 0 and sum(step_differ.values()) == 0,
             f"fma: the fused op differs from the float64 form ({sum(differ.values())} blur "
             f"elements, step {dict(step_differ)})")
+    require(new_emulated > 0, "fma: the float64 blurs captured nothing anew: the fused "
+                              "graphs were replayed, the comparison compared them with "
+                              "themselves")
 
 
 def phase_api(seq, xy, valid, dev) -> dict:
@@ -1026,6 +1061,15 @@ def phase_api(seq, xy, valid, dev) -> dict:
     same &= all(torch.equal(x, y) for x, y in zip(sa.features, sb.features))
     print(f"[api] make_slam_step over {API_FRAMES} frames: telemetry and features "
           f"bit-identical to slam_step {same}, launches {launches}")
+    from zenslam_tpu_torch.utils import graphs
+
+    progs = {"pyramidal_lk": pyramidal_lk, "build_pyramid": build_pyramid,
+             "solve_fundamental_ransac": solve_fundamental_ransac,
+             "solve_essential_ransac": solve_essential_ransac,
+             "recover_pose_from_essential": recover_pose_from_essential}
+    api_calls = {k: graphs.calls(p) for k, p in progs.items()}
+    print(f"[api] the library calls ran the captured programs (utils/graphs.py): calls "
+          f"(replays) so far {api_calls}")
     sites = sync_sites(records) + sync_sites(lk_records)
     print(f"[api] implicit synchronises of the new functions (triangulation, gates, RANSAC, "
           f"recover_pose, pyramidal_lk; their second calls): {sum(sites.values())}; by line: "
@@ -1044,6 +1088,7 @@ def phase_api(seq, xy, valid, dev) -> dict:
             f"api: pyramidal_lk card vs CPU {lk_err} px on {int(both.sum())} tracks")
     require(same and launches == {"lk_fb": 2 * API_FRAMES, "orb": API_FRAMES},
             f"api: make_slam_step identical {same}, launches {launches}")
+    require(all(v > 0 for v in api_calls.values()), f"api: not run captured: {api_calls}")
     return launches
 
 
@@ -3605,6 +3650,396 @@ def phase_solvers(dev) -> dict:
     return launches
 
 
+def frontend_cases(seq, xy, valid, dev) -> dict:
+    """``[frontend]``'s inputs: entry point -> (program, inputs, other
+    inputs of the same shapes with other values and other traced floats,
+    keyword arguments), at the default ``SlamConfig``'s sizes on the
+    benchmark's 1024² frames (512 keypoints, an 8192-slot map, 128-row
+    RANSAC noise), keylines as ``options/euroc_mh_lines.yaml`` (64 a
+    frame) on the corridor with stripes, the IMU at 200 Hz against 20 Hz
+    frames, the render at 1024²."""
+    import torch
+
+    from zenslam_tpu_torch.estimation import cascade, epipolar, fusion, pnp, rigid
+    from zenslam_tpu_torch.estimation.ransac import gumbel
+    from zenslam_tpu_torch.geometry.camera import fundamental_from_rig, project
+    from zenslam_tpu_torch.geometry.lie import se3_apply, so3_exp
+    from zenslam_tpu_torch.imu import continuous, gravity, preintegration
+    from zenslam_tpu_torch.io import synthetic
+    from zenslam_tpu_torch.ops import (
+        dog, fast, freak, harris, image, lines, lk, match, orb, sift)
+    from zenslam_tpu_torch.pipeline import SlamConfig, state as pstate
+    from zenslam_tpu_torch.utils.device import upload
+    from zenslam_tpu_torch.utils.graphs import eager
+
+    cfg = SlamConfig()
+    N, M = cfg.max_keypoints, cfg.max_landmarks
+    rng = np.random.default_rng(23)
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    img0, img1 = seq.left[0], seq.left[1]
+    xy1 = xy + rand(N, 2) - 0.5
+    valid1 = valid & (rand(N) > 0.1)
+    lseq = synthetic.make_sequence(np.random.default_rng(11), n_frames=3, width=SIZE,
+                                   height=SIZE, motion="strafe", with_lines=True,
+                                   with_imu=True, device_render=True, device=dev)
+    with eager():
+        sm0, sm1 = image.gaussian_blur(img0, 2.0, 4), image.gaussian_blur(img1, 2.0, 4)
+        pyr0, pyr1 = image.build_pyramid(img0, cfg.pyramid_levels), image.build_pyramid(
+            img1, cfg.pyramid_levels)
+        score0, score1 = fast.fast_score(img0), fast.fast_score(img1)
+        desc0, desc1 = orb.orb_descriptors(img0, xy, valid)[0], orb.orb_descriptors(
+            img1, xy1, valid1)[0]
+        fd0, fd1 = sift.sift_descriptors(img0, xy, valid), sift.sift_descriptors(img1, xy1,
+                                                                                 valid1)
+        kl = [lines.detect_keylines(lseq.left[t], torch.zeros((64, 2, 2), device=dev),
+                                    torch.zeros(64, dtype=torch.bool, device=dev),
+                                    min_length=cfg.line_min_length) for t in (0, 1)]
+    # the map side: 8192 slots of descriptors and projections
+    lm_desc = up(clustered_desc(rng, M))
+    lm_fd = rand(M, 128)
+    lm_fd = lm_fd / lm_fd.norm(dim=-1, keepdim=True)
+    proj, proj1 = rand(M, 2) * SIZE, rand(M, 2) * SIZE
+    lm_valid, lm_valid1 = rand(M) > 0.3, rand(M) > 0.3
+    with eager():
+        gate, gate1 = match.radius_gate(xy, proj, 20.0), match.radius_gate(xy1, proj1, 20.0)
+    require(cfg.landmark_match_distance == 64, "frontend: the match case's max_distance")
+    F = fundamental_from_rig(seq.rig)
+    H_, W_ = img0.shape
+    v, u = torch.meshgrid(torch.arange(H_, dtype=torch.float32, device=dev),
+                          torch.arange(W_, dtype=torch.float32, device=dev), indexing="ij")
+    maps = [(u + rand(H_, W_) * 2 - 1, v + rand(H_, W_) * 2 - 1) for _ in range(2)]
+
+    # IMU: 10 samples of 5 ms a frame (200 Hz against 20 Hz frames)
+    def imu(t):
+        return tuple(up(np.asarray(x[t], np.float32)) for x in (lseq.gyro, lseq.accel,
+                                                                 lseq.imu_dts)) + (
+            up(lseq.imu_mask[t]),)
+
+    def cont(t, t0, t1):
+        gy, ac, d, m = imu(t)
+        d_np = np.where(lseq.imu_mask[t], lseq.imu_dts[t], 0.0).astype(np.float32)
+        ts = up(np.cumsum(d_np) - 0.5 * d_np)
+        return ts, gy, ac, m, t0, t1
+
+    n_imu = lseq.gyro.shape[1]
+    span = float(np.where(lseq.imu_mask[1], lseq.imu_dts[1], 0.0).sum())
+
+    def grav_est(n):
+        return gravity.GravityEstimator(
+            samples=rand(64, 3) + torch.tensor([0.0, 9.8, 0.0], device=dev),
+            valid=torch.arange(64, device=dev) < n,
+            next_slot=torch.full((), n % 64, dtype=torch.int32, device=dev))
+
+    def grav_args(k, dt01, dt12):
+        p0 = rand(3)
+        vel = torch.tensor([0.4, 0.0, 0.1], device=dev)
+        R = so3_exp(torch.tensor([0.0, 0.05 * k, 0.0], device=dev))
+        return (grav_est(20 + k), p0, p0 + dt01 * vel, p0 + (dt01 + dt12) * vel
+                + torch.tensor([0.0, 0.01, 0.0], device=dev), dt01, dt12, R,
+                torch.tensor([0.1, -9.7, 0.2], device=dev))
+
+    def tel(k):
+        ints = [torch.randint(0, 500, (), generator=g, device=dev) for _ in range(6)]
+        return pstate.FrameTelemetry(
+            *ints[:5], pose_method=torch.full((), k, dtype=torch.int32, device=dev),
+            pose_ok=torch.ones((), dtype=torch.bool, device=dev), tracked_ratio=rand(),
+            is_keyframe=torch.full((), k == 0, device=dev), map_size=ints[5],
+            n_lines=torch.full((), 3 + k, device=dev), n_line_triangulated=ints[0] % 7,
+            line_map_size=ints[1], R_cw=so3_exp(rand(3) * 0.1), t_cw=rand(3))
+
+    # geometry: 512 points 2-5 m ahead, seen from two poses, 10% outliers
+    rig = seq.rig
+    K = rig.left.K
+
+    def scene(k):
+        X = torch.stack([rand(N) * 4 - 2, rand(N) * 3 - 1.5, rand(N) * 3 + 2], -1)
+        R0 = so3_exp(torch.tensor([0.01, 0.02, 0.0], device=dev) * k)
+        t0 = torch.tensor([0.05 * k, 0.0, 0.0], device=dev)
+        R1 = so3_exp(torch.tensor([0.0, 0.05, 0.01], device=dev)) @ R0
+        t1 = t0 + torch.tensor([0.3, 0.02, 0.05], device=dev)
+        uv0 = project(rig.left, se3_apply(R0, t0, X))
+        out = (rand(N) < 0.1)[:, None]
+        uv1 = project(rig.left, se3_apply(R1, t1, X)) + (rand(N, 2) - 0.5) * 0.6
+        uv1 = torch.where(out, uv1 + rand(N, 2) * 60 - 30, uv1)
+        uv_r = project(rig.right, se3_apply(rig.R_rl, rig.t_rl, se3_apply(R1, t1, X)))
+        return dict(X=X, R0=R0, t0=t0, R1=R1, t1=t1, uv0=uv0, uv1=uv1, uv_r=uv_r,
+                    valid=rand(N) > 0.05)
+
+    sc = [scene(1), scene(2)]
+
+    def rigid_args(s):
+        dst = se3_apply(s["R0"], s["t0"], s["X"]) + (rand(N, 3) - 0.5) * 0.02
+        return gumbel(g, (cfg.rigid_iters, N), dev), s["X"], dst, s["valid"]
+
+    def pnp_args(s):
+        return (gumbel(g, (2, cfg.pnp_iters, N), dev), torch.stack([K, rig.right.K]),
+                torch.stack([s["X"], s["X"]]), torch.stack([s["uv1"], s["uv_r"]]),
+                torch.stack([s["valid"], s["valid"]]))
+
+    def pnp_kw(s):
+        return dict(threshold=cfg.pnp_threshold, R_init=torch.stack([s["R1"], s["R1"]]),
+                    t_init=torch.stack([s["t1"], s["t1"]]))
+
+    def cands():
+        return fusion.PoseCandidate(
+            R=so3_exp(rand(5, 3) * 0.1), t=rand(5, 3) * 0.2, inlier_ratio=rand(5),
+            mean_err=rand(5) * 3, n_inliers=torch.randint(0, 400, (5,), generator=g,
+                                                           device=dev),
+            is_line=torch.zeros(5, dtype=torch.bool, device=dev),
+            valid=torch.tensor([True, True, False, True, True], device=dev))
+
+    scales = torch.tensor([3.0, 3.0, 0.1, 3.0, 0.1], device=dev)
+
+    def cascade_args(s):
+        noise = cascade.draw_cascade_noise(g, N, cfg.pnp_iters, cfg.rigid_iters,
+                                           cfg.essential_iters, dev)
+        Xc = se3_apply(s["R0"], s["t0"], s["X"])
+        return (noise, rig, s["X"], s["uv1"], s["valid"], s["X"], s["uv_r"], s["valid"], Xc,
+                se3_apply(s["R1"], s["t1"], s["X"]), s["valid"], s["R0"], s["t0"], s["uv0"],
+                s["uv1"], s["valid"], Xc, s["valid"], s["R0"], s["t0"], rand() * 0.05)
+
+    def ess(s):
+        return gumbel(g, (cfg.essential_iters, N), dev), K, s["uv0"], s["uv1"], s["valid"]
+
+    def recover(s):
+        a = ess(s)
+        with eager():
+            E = epipolar.solve_essential_ransac(*a)["E"]
+        return E, K, s["uv0"], s["uv1"], s["valid"]
+
+    def two_d(s):
+        noise = gumbel(g, (cfg.essential_iters, N), dev)
+        return (noise, K, s["uv0"], s["uv1"], s["valid"], se3_apply(s["R0"], s["t0"], s["X"]),
+                s["valid"], s["R0"], s["t0"])
+
+    world = synthetic.make_corridor_world(np.random.default_rng(11))
+    world_arrays = (*(upload(np.asarray(a, np.float32), dev) for a in (
+        world.normals, world.offsets, world.origins, world.u_axes, world.v_axes,
+        world.textures)), float(world.tex_scale))
+    cam = [float(x) for x in (rig.left.fx, rig.left.fy, rig.left.cx, rig.left.cy)]
+
+    def render(k):
+        R = so3_exp(torch.tensor([0.0, 0.03 * k, 0.0], device=dev))
+        return (world_arrays, *cam, R, torch.tensor([0.1 * k, 0.0, 0.5], device=dev), SIZE,
+                SIZE)
+
+    lk_kw = dict(radius=cfg.klt_radius, iters=cfg.klt_iters)
+    grid = dict(cell_size=cfg.cell_size, max_keypoints=N, border=cfg.detect_border,
+                subpixel=cfg.subpixel_detect)
+    return {
+        "gaussian_blur (sigma 2, radius 4)": (image.gaussian_blur, (img0,), (img1,),
+                                              dict(sigma=2.0, radius=4)),
+        "build_pyramid (4 levels)": (image.build_pyramid, (img0,), (img1,),
+                                     dict(levels=cfg.pyramid_levels)),
+        "remap (1024x1024 maps)": (image.remap, (img0, *maps[0]), (img1, *maps[1]), {}),
+        "clahe (grid 8, clip 4)": (image.clahe, (img0,), (img1,),
+                                   dict(clip_limit=cfg.clahe_clip)),
+        "scharr_gradients": (image.scharr_gradients, (img0,), (img1,), {}),
+        "fast_score": (fast.fast_score, (img0,), (img1,), dict(threshold=cfg.fast_threshold)),
+        "select_grid_keypoints": (fast.select_grid_keypoints, (score0, xy, valid),
+                                  (score1, xy1, valid1), grid),
+        "detect_grid_keypoints": (fast.detect_grid_keypoints, (img0, xy, valid),
+                                  (img1, xy1, valid1), dict(grid, threshold=cfg.fast_threshold)),
+        "orb_orientation": (orb.orb_orientation, (sm0, xy), (sm1, xy1), {}),
+        "orb_descriptors": (orb.orb_descriptors, (img0, xy, valid), (img1, xy1, valid1), {}),
+        "hamming_matrix (512 x 8192)": (match.hamming_matrix, (desc0, lm_desc),
+                                        (desc1, lm_desc.flip(0).contiguous()), {}),
+        "match_descriptors (512 x 8192, radius gate)": (
+            match.match_descriptors, (desc0, lm_desc, valid, lm_valid, 64, 0.8, True, False,
+                                      gate),
+            (desc1, lm_desc.flip(0).contiguous(), valid1, lm_valid1, 64, 0.8, True, False,
+             gate1), {}),
+        "l2_matrix (512 x 8192)": (match.l2_matrix, (fd0, lm_fd),
+                                   (fd1, lm_fd.flip(0).contiguous()), {}),
+        "match_descriptors_float (512 x 8192, ratio)": (
+            match.match_descriptors_float, (fd0, lm_fd, valid, lm_valid),
+            (fd1, lm_fd.flip(0).contiguous(), valid1, lm_valid1),
+            dict(max_distance=cfg.float_match_distance, use_ratio=True)),
+        "lsh_binarize (512 x 128)": (match.lsh_binarize, (fd0,), (fd1,), {}),
+        "radius_gate (512 x 8192)": (match.radius_gate, (xy, proj, 20.0), (xy1, proj1, 20.0),
+                                     {}),
+        "epipolar_gate (512 x 512)": (match.epipolar_gate, (F, xy, xy1, 3.0),
+                                      (F, xy1, xy, 3.0), {}),
+        "pyramidal_lk (level tuples)": (lk.pyramidal_lk, (pyr0, pyr1, xy, valid),
+                                        (pyr1, pyr0, xy1, valid1), {}),
+        "pyramidal_lk (stacked)": (lk.pyramidal_lk, (lk.stack_pyramid(pyr0),
+                                                     lk.stack_pyramid(pyr1), xy, valid),
+                                   (lk.stack_pyramid(pyr1), lk.stack_pyramid(pyr0), xy1,
+                                    valid1), lk_kw),
+        "lk_forward_backward": (lk.lk_forward_backward, (lk.stack_pyramid(pyr0),
+                                                         lk.stack_pyramid(pyr1), xy, valid),
+                                (lk.stack_pyramid(pyr1), lk.stack_pyramid(pyr0), xy1, valid1),
+                                lk_kw),
+        "harris_score": (harris.harris_score, (img0,), (img1,), {}),
+        "harris_score_multiscale": (harris.harris_score_multiscale, (img0,), (img1,),
+                                    dict(threshold=cfg.harris_threshold)),
+        "dog_score": (dog.dog_score, (img0,), (img1,), dict(threshold=cfg.dog_threshold)),
+        "sift_descriptors": (sift.sift_descriptors, (img0, xy, valid), (img1, xy1, valid1), {}),
+        "freak_descriptors": (freak.freak_descriptors, (img0, xy, valid), (img1, xy1, valid1),
+                              {}),
+        "detect_keylines (64, corridor with stripes)": (
+            lines.detect_keylines, (lseq.left[0], kl[1][0], kl[1][2]),
+            (lseq.left[1], kl[0][0], kl[0][2]), dict(min_length=cfg.line_min_length)),
+        "keyline_descriptors (64)": (lines.keyline_descriptors, (lseq.left[0], kl[0][0],
+                                                                 kl[0][2]),
+                                     (lseq.left[1], kl[1][0], kl[1][2]), {}),
+        f"preintegrate ({n_imu} samples)": (preintegration.preintegrate, imu(1), imu(2), {}),
+        "preintegrate_continuous (lpm, traced t0/t1)": (
+            continuous.preintegrate_continuous, cont(1, 0.0, span), cont(2, 0.0013, span - 0.004),
+            dict(n_grid=n_imu)),
+        "preintegrate_continuous (ugpm, traced t0/t1)": (
+            continuous.preintegrate_continuous, cont(1, 0.0, span), cont(2, 0.0021, span - 0.003),
+            dict(n_grid=n_imu, method="ugpm")),
+        "gravity_add_sample (traced dt01/dt12)": (gravity.gravity_add_sample,
+                                                  grav_args(0, 0.05, 0.05),
+                                                  grav_args(1, 0.045, 0.0575), {}),
+        "gravity_estimate": (gravity.gravity_estimate, (grav_est(30),), (grav_est(41),), {}),
+        "pack_telemetry": (pstate.pack_telemetry, (tel(0),), (tel(1),), {}),
+        "solve_rigid_ransac": (rigid.solve_rigid_ransac, rigid_args(sc[0]), rigid_args(sc[1]),
+                               dict(threshold=cfg.rigid_threshold)),
+        "solve_pnp_ransac (cam0 + cam1, priors)": (pnp.solve_pnp_ransac, pnp_args(sc[0]),
+                                                   pnp_args(sc[1]), pnp_kw(sc[0])),
+        "fuse_poses": (fusion.fuse_poses, (cands(), scales), (cands(), scales), {}),
+        "estimate_pose_cascade (fused)": (cascade.estimate_pose_cascade, cascade_args(sc[0]),
+                                          cascade_args(sc[1]), dict(fuse=True)),
+        "solve_fundamental_ransac": (epipolar.solve_fundamental_ransac, (
+            gumbel(g, (256, N), dev), sc[0]["uv0"], sc[0]["uv1"], sc[0]["valid"]), (
+            gumbel(g, (256, N), dev), sc[1]["uv0"], sc[1]["uv1"], sc[1]["valid"]), {}),
+        "solve_fundamental_ransac (default draw)": (
+            epipolar.solve_fundamental_ransac, (None, sc[0]["uv0"], sc[0]["uv1"], sc[0]["valid"]),
+            (None, sc[1]["uv0"], sc[1]["uv1"], sc[1]["valid"]), {}),
+        "solve_essential_ransac": (epipolar.solve_essential_ransac, ess(sc[0]), ess(sc[1]),
+                                   dict(threshold=cfg.essential_threshold)),
+        "recover_pose_from_essential": (epipolar.recover_pose_from_essential, recover(sc[0]),
+                                        recover(sc[1]), {}),
+        "estimate_2d2d_scaled": (epipolar.estimate_2d2d_scaled, two_d(sc[0]), two_d(sc[1]),
+                                 dict(threshold=cfg.essential_threshold)),
+        "_render_view_device (1024x1024)": (synthetic._render_view_device, render(0),
+                                            render(1), {}),
+    }
+
+
+def frontend_programs() -> dict:
+    """The front end's, IMU's, estimators', telemetry's and render's
+    programs (the reference's jits there) by name."""
+    from zenslam_tpu_torch.estimation import cascade, epipolar, fusion, pnp, rigid
+    from zenslam_tpu_torch.imu import continuous, gravity, preintegration
+    from zenslam_tpu_torch.io import synthetic
+    from zenslam_tpu_torch.ops import dog, fast, freak, harris, image, lines, lk, match, orb, sift
+    from zenslam_tpu_torch.pipeline import state
+    from zenslam_tpu_torch.utils.graphs import Program
+
+    mods = (cascade, epipolar, fusion, pnp, rigid, continuous, gravity, preintegration,
+            synthetic, dog, fast, freak, harris, image, lines, lk, match, orb, sift, state)
+    return {f"{m.__name__.split('.')[-1]}.{k}": v for m in mods for k, v in vars(m).items()
+            if isinstance(v, Program) and v.__module__ == m.__name__}
+
+
+def phase_frontend(seq, xy, valid, dev) -> dict:
+    """``[frontend]``: every library function that the reference jits in
+    its front end, IMU, estimators, telemetry and device render, called
+    directly as a caller would, captured (``utils/graphs.py``) against
+    ``graphs.eager()``: the first call (the capture), then SOLVER_REPEATS
+    calls each way, host ms up to a synchronise; every output bit-identical
+    to the eager call's, the first call's output unchanged by a second call
+    with other values (the caller's), the inputs unchanged, the other
+    values and traced floats through the same capture; captures, graphs
+    held and peak memory. Returns the launches (none: the hand kernels are
+    not on this path)."""
+    import torch
+
+    from zenslam_tpu_torch.eval.check_run import card_line
+    from zenslam_tpu_torch.utils.graphs import Program, eager, graphs_held
+
+    t0 = time.perf_counter()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    card = card_line()
+    held_start = graphs_held()
+    cases = frontend_cases(seq, xy, valid, dev)
+    progs = frontend_programs()
+    covered = {p for p, *_ in cases.values()}
+    require(len(progs) == 40 and all(p in covered for p in progs.values()),
+            f"frontend: {len(progs)} programs, not driven: "
+            f"{[k for k, p in progs.items() if p not in covered]}")
+
+    def named(tree) -> dict:
+        return {str(i): t for i, t in enumerate(tree_tensors(tree))}
+
+    def host_ms(fn) -> tuple:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t1) * 1e3
+
+    rows = []
+    for name, (prog, a, b, kw) in cases.items():
+        require(isinstance(prog, Program) and prog.copy_outputs,
+                f"frontend: {name} is not a program returning the caller's outputs")
+        inputs = {k: v.clone() for k, v in named((a, b, kw)).items()}
+        held0 = len(prog.captured)
+        first, cap_ms = host_ms(lambda: prog(*a, **kw))
+        kept = {k: v.clone() for k, v in named(first).items()}
+        graphed = [host_ms(lambda: prog(*a, **kw)) for _ in range(SOLVER_REPEATS)]
+        with eager():
+            eager_runs = [host_ms(lambda: prog(*a, **kw)) for _ in range(SOLVER_REPEATS)]
+        captures = len(prog.captured) - held0
+        got_b = prog(*b, **kw)
+        with eager():
+            want_b = prog(*b, **kw)
+        want = named(eager_runs[0][0])
+        off = [parted(want, named(g)) for g, _ in graphed] + [parted(named(want_b),
+                                                                     named(got_b))]
+        require(len(prog.captured) - held0 == captures,
+                f"frontend: {name}: other values (traced floats) captured anew")
+        require(not any(off), f"frontend: {name}: captured parts from eager in {off}")
+        require(not parted(kept, named(first)),
+                f"frontend: {name}: the first call's output changed under a later call")
+        require(parted(kept, named(got_b)),
+                f"frontend: {name}: the other inputs gave the same output")
+        require(not parted(inputs, named((a, b, kw))), f"frontend: {name}: an input was written")
+        g_ms = float(np.median([m for _, m in graphed]))
+        e_ms = float(np.median([m for _, m in eager_runs]))
+        rows.append((name, cap_ms, g_ms, e_ms, captures))
+        first_is = "warm-up + capture" if captures else "a replay: an earlier phase captured it"
+        print(f"[frontend] {name}: first call ({first_is}) {cap_ms:.2f} ms, captured "
+              f"{g_ms:.3f} ms, eager {e_ms:.3f} ms a call (host, up to a synchronise, medians "
+              f"of {SOLVER_REPEATS}); {len(want)} outputs bit-identical to eager, the first "
+              f"kept unchanged, inputs unwritten, other values through the same capture; "
+              f"captures {captures}")
+    # a caller's generator: registered with the graph, not reseeded, its
+    # draws advancing call after call as eager ones do
+    from zenslam_tpu_torch.estimation.epipolar import solve_fundamental_ransac
+
+    fa = cases["solve_fundamental_ransac"][1][1:]
+    gens = [torch.Generator(device=dev).manual_seed(5) for _ in range(2)]
+    got = [solve_fundamental_ransac(None, *fa, generator=gens[0]) for _ in range(3)]
+    with eager():
+        want = [solve_fundamental_ransac(None, *fa, generator=gens[1]) for _ in range(3)]
+    off = [parted(named(w), named(g)) for w, g in zip(want, got)]
+    print(f"[frontend] solve_fundamental_ransac with a caller's generator, 3 calls each way: "
+          f"bit-identical {not any(off)}, the calls' inliers {[int(g['n_inliers']) for g in got]}")
+    require(not any(off), f"frontend: a caller's generator: captured parts from eager {off}")
+    launches = read_launches()
+    faster = [n for n, _, g_ms, e_ms, _ in rows if g_ms < e_ms]
+    print(f"[frontend] captured faster than eager on {len(faster)} of {len(rows)} calls; sum of "
+          f"host ms a call captured {sum(r[2] for r in rows):.2f}, eager "
+          f"{sum(r[3] for r in rows):.2f}; first calls {sum(r[1] for r in rows) / 1e3:.2f} s")
+    print(f"[frontend] graphs held {graphs_held()} ({graphs_held() - held_start} by this phase), "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; {card}; launches "
+          f"{launches}; phase {time.perf_counter() - t0:.1f} s")
+    require(launches == {"lk_fb": 0, "orb": 0}, f"frontend: hand kernels launched {launches}")
+    return launches
+
+
 def tree_tensors(tree) -> list:
     """The tensors of ``tree``, in ``graphs.flatten``'s order."""
     from zenslam_tpu_torch.utils.graphs import flatten
@@ -3948,6 +4383,10 @@ def phase_graphs(seq, dev) -> dict:
     t0 = time.perf_counter()
     card = card_line()
     nested0 = {k: len(p.captured) for k, p in nested_programs().items()}
+    # the render is data set-up (make_sequence's, the orbits' here), not a nested call
+    front = {k: p for k, p in frontend_programs().items() if k != "synthetic._render_view_device"}
+    front0 = {k: (len(p.captured), graphs.calls(p)) for k, p in front.items()}
+    eager_held = []
     # (a) the slice: eager, graphed, graphed, eager
     runs, peak, launches = [], {}, Counter()
     for i, graphed in enumerate((False, True, True, False)):
@@ -3955,6 +4394,8 @@ def phase_graphs(seq, dev) -> dict:
         held0, cap0 = graphs.graphs_held(), len(graphs.capture_ms())
         before = read_launches()
         runs.append(slice_run(seq, dev, graphed, states=i < 2))
+        if not graphed:
+            eager_held.append(graphs.graphs_held() - held0)
         if graphed:
             launches.update({k: v - before[k] for k, v in read_launches().items()})
         if i >= 2:      # the runs that keep no state copies
@@ -4094,6 +4535,15 @@ def phase_graphs(seq, dev) -> dict:
     print(f"[graphs] captures of the library programs called inside the system's programs, "
           f"over this phase (inline there, as jit inlines a nested jit): {nested}")
     require(not any(nested.values()), f"graphs: a nested library program captured {nested}")
+    front_new = {k: (len(p.captured) - front0[k][0], graphs.calls(p) - front0[k][1])
+                 for k, p in front.items()}
+    front_new = {k: v for k, v in front_new.items() if any(v)}
+    print(f"[graphs] the front end's, IMU's and estimators' programs over this phase's step and "
+          f"system runs (inline in the step, the system's programs and the eager slam_step): "
+          f"captures and calls {front_new or 'none'}; captures by the eager slice runs "
+          f"{eager_held}")
+    require(not front_new, f"graphs: a front-end program captured or ran {front_new}")
+    require(eager_held == [0, 0], f"graphs: the eager slam_step runs captured {eager_held}")
     print(f"[graphs] graphs held {graphs.graphs_held()}; phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -4139,6 +4589,7 @@ def main() -> int:
         paths.update(phase_dist(seq, dev, dense))
         paths["scaling"] = phase_scaling(dev)
         paths["solvers"] = phase_solvers(dev)
+        paths["frontend"] = phase_frontend(seq, xy, valid, dev)
         lk["max_abs_err"] = max(lk["max_abs_err"], app_lk_err, lines_lk_err, rigs_lk_err,
                                 bench_lk_err)
         orb["max_abs_err"] = max(orb["max_abs_err"], rigs_orb_err, bench_orb_err)

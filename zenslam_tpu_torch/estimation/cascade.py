@@ -11,6 +11,7 @@ prediction as a fifth candidate. Randomness enters only as Gumbel noise
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,6 +23,7 @@ from zenslam_tpu_torch.estimation.ransac import gumbel, take
 from zenslam_tpu_torch.estimation.rigid import solve_rigid_ransac
 from zenslam_tpu_torch.geometry.camera import StereoRig
 from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse, so3_orthonormalize
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class CascadeNoise(NamedTuple):
@@ -67,6 +69,7 @@ def _pad_rows(a, m: int):
     return torch.cat([a, pad])
 
 
+@functools.partial(Program, static_argnames=("fuse",), copy_outputs=True)
 def estimate_pose_cascade(noise: CascadeNoise, rig: StereoRig,
                           X0, uv0, valid0, X1, uv1, valid1,
                           src3d, dst3d, valid3d, R_pred, t_pred,
@@ -79,7 +82,9 @@ def estimate_pose_cascade(noise: CascadeNoise, rig: StereoRig,
     shapes; ``p2a=None`` disables the essential fallback (method 3).
     ``pred_sigma_p``: 1-sigma position uncertainty (m) of the predicted pose
     from the preintegration covariance; with ``fuse`` it makes the
-    prediction a candidate weighted on the 0.1 m scale."""
+    prediction a candidate weighted on the 0.1 m scale.
+    A captured program: the thresholds, ``min_inliers`` and a float ``pred_sigma_p`` are keyed
+    by value."""
     R1p, t1p = se3_compose(rig.R_rl, rig.t_rl, R_pred, t_pred)
     n = max(X0.shape[0], X1.shape[0])
     rp = solve_pnp_ransac(

@@ -5,6 +5,7 @@ Gumbel), as in ``estimation/ransac.py``."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -15,6 +16,7 @@ from zenslam_tpu_torch.estimation.ransac import (
 from zenslam_tpu_torch.geometry.polar import inv_spd, project_rank2, smallest_eigvec_3
 from zenslam_tpu_torch.geometry.triangulate import triangulate_dlt
 from zenslam_tpu_torch.utils.device import upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def _hartley_normalize(pts, w):
@@ -92,16 +94,45 @@ def _sampson_distance(F, pa, pb):
     return num / torch.clamp(den, min=1e-12)
 
 
+class _FreshDraw:
+    """The generator of a call given neither noise nor a generator: torch's
+    default seed on a device, seeded afresh before every run of the
+    captured program (``seeded_generators``), so every call draws what a
+    new ``torch.Generator`` draws."""
+
+    def __init__(self, device):
+        self.generator = torch.Generator(device=device)
+        self.seed = self.generator.initial_seed()
+
+    def seeded_generators(self) -> list:
+        return [(self.generator, self.seed)]
+
+
+_FRESH: dict = {}
+
+
+def _fresh_draw(device) -> _FreshDraw:
+    """One ``_FreshDraw`` per device (a static argument: one key)."""
+    if device not in _FRESH:
+        _FRESH[device] = _FreshDraw(device)
+    return _FRESH[device]
+
+
+@functools.partial(Program, static_argnames=("iters", "generator"),
+                   static_defaults={"generator": _fresh_draw}, copy_outputs=True)
 def solve_fundamental_ransac(noise, pa, pb, valid, threshold: float = 2.0, iters: int = 256,
                              generator: torch.Generator | None = None):
     """RANSAC fundamental matrix with Sampson scoring, threshold in pixels,
     refit on the inliers. ``noise`` (iters, n) Gumbel draws; when None they
     are drawn from ``generator`` (a new one, at torch's default seed, when
     that is None too).
-    Returns dict(F, inliers, n_inliers, ok)."""
+    Returns dict(F, inliers, n_inliers, ok).
+    A captured program: ``threshold`` is keyed by value."""
     if noise is None:
-        gen = generator if generator is not None else torch.Generator(device=pa.device)
-        noise = gumbel(gen, (iters, pa.shape[0]), pa.device)
+        if generator is None:
+            generator = torch.Generator(device=pa.device)
+        noise = gumbel(getattr(generator, "generator", generator), (iters, pa.shape[0]),
+                       pa.device)
     thr2 = threshold * threshold
     idx = ransac_sample_indices(noise, valid, 8)
     Fs = fundamental_8pt(gather_rows(pa, idx), gather_rows(pb, idx))
@@ -117,9 +148,11 @@ def solve_fundamental_ransac(noise, pa, pb, valid, threshold: float = 2.0, iters
     return {"F": F, "inliers": inliers, "n_inliers": n, "ok": n >= 8}
 
 
+@functools.partial(Program, copy_outputs=True)
 def solve_essential_ransac(noise, K, pa, pb, valid, threshold: float = 1.0):
     """RANSAC essential matrix on pixel inputs; noise (iters, n) Gumbel draws.
-    Threshold in pixels via Sampson distance on normalised coordinates."""
+    Threshold in pixels via Sampson distance on normalised coordinates.
+    A captured program: ``threshold`` is keyed by value."""
     na = normalize_pixels(K, pa)
     nb = normalize_pixels(K, pb)
     thr_n = threshold / ((K[0, 0] + K[1, 1]) * 0.5)
@@ -196,6 +229,7 @@ def _masked_median(x, mask):
     return 0.5 * (take(srt, mid) + take(srt, mid2))
 
 
+@functools.partial(Program, copy_outputs=True)
 def recover_pose_from_essential(E, K, pa, pb, valid):
     """Pick the (R, t) of the four decompositions of E with the most masked
     points in front of both cameras. Returns (R, t, n_good), |t| = 1."""
@@ -221,13 +255,15 @@ def recover_pose_from_essential(E, K, pa, pb, valid):
     return take(Rs, best), take(ts, best), take(counts, best)
 
 
+@functools.partial(Program, copy_outputs=True)
 def estimate_2d2d_scaled(noise, K, pa, pb, valid, X_prev_cam, has3d, R_prev, t_prev,
                          threshold: float = 1.5, min_inliers: int = 12,
                          min_scale_samples: int = 5):
     """2D-2D pose with metric scale from prior landmarks: essential RANSAC →
     recoverPose (unit t) → unit-scale triangulation → scale = median of
     |X_prior| / |X_unit| → T_cur_w = (R, s·t) ∘ T_prev_w.
-    Returns dict(R, t, ok, n_inliers, scale, mean_err, inliers)."""
+    Returns dict(R, t, ok, n_inliers, scale, mean_err, inliers).
+    A captured program: ``threshold`` and the two counts are keyed by value."""
     res = solve_essential_ransac(noise, K, pa, pb, valid, threshold=threshold)
     R_cp, t_unit, n_good = recover_pose_from_essential(res["E"], K, pa, pb, res["inliers"])
     eye3 = torch.eye(3, dtype=pa.dtype, device=pa.device)

@@ -9,11 +9,13 @@ and a diagonal 6x6 covariance from the confidence. Indices are gathered with
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zenslam_tpu_torch.estimation.ransac import take
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class PoseCandidate(NamedTuple):
@@ -26,12 +28,14 @@ class PoseCandidate(NamedTuple):
     valid: torch.Tensor         # (M,) bool
 
 
+@functools.partial(Program, copy_outputs=True)
 def fuse_poses(cands: PoseCandidate, err_scale=2.0, inlier_boost_at: int = 50,
                outlier_distance: float = 0.5, consistency_scale: float = 0.2):
     """Fuse M pose candidates. Returns (R, t, confidence, cov_diag (6,),
     best). ``err_scale``: a scalar or an (M,) vector of per-candidate scales
     (0.1 m for 3D-3D, 3 px for pixel residuals). ``best`` is the index of
-    the winning candidate, the fused rotation's source."""
+    the winning candidate, the fused rotation's source.
+    A captured program: a float ``err_scale`` and the other scalars are keyed by value."""
     f32 = torch.float32
     dev = cands.t.device
     if not isinstance(err_scale, (int, float)):

@@ -8,11 +8,14 @@ vmaps them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from zenslam_tpu_torch.estimation.ransac import gather_rows, ransac_sample_indices
 from zenslam_tpu_torch.geometry.lie import so3_exp, so3_hat, so3_orthonormalize
 from zenslam_tpu_torch.geometry.polar import inv_spd, polar_so3, solve_spd
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def normalize_pixels(K, uv):
@@ -118,6 +121,7 @@ def _take(x, idx):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
+@functools.partial(Program, static_argnames=("refine_iters",), copy_outputs=True)
 def solve_pnp_ransac(noise, K, X, uv, valid, threshold: float = 3.0,
                      refine_iters: int = 8, huber_delta: float = 2.0,
                      R_init=None, t_init=None):
@@ -126,7 +130,8 @@ def solve_pnp_ransac(noise, K, X, uv, valid, threshold: float = 3.0,
     noise (P, iters, n) Gumbel draws; K (P, 3, 3); X (P, n, 3); uv (P, n, 2);
     valid (P, n); R_init/t_init optional (P, 3, 3)/(P, 3) pose priors whose
     Huber-GN polish competes with the RANSAC winner's. Returns a dict of
-    R, t, inliers, n_inliers, ok, mean_err with leading dim P."""
+    R, t, inliers, n_inliers, ok, mean_err with leading dim P.
+    A captured program: ``threshold`` and ``huber_delta`` are keyed by value."""
     thr = threshold
     xn = normalize_pixels(K, uv)
     idx = ransac_sample_indices(noise, valid, 6)             # (P, I, 6)

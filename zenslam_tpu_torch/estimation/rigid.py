@@ -3,10 +3,13 @@ counterpart of ``zenslam_tpu/estimation/rigid.py``."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from zenslam_tpu_torch.estimation.ransac import gather_rows, ransac_sample_indices, take
 from zenslam_tpu_torch.geometry.polar import rotation_from_cov
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def umeyama(src, dst, w=None, with_scale: bool = False):
@@ -37,10 +40,12 @@ def _align_err(R, t, src, dst):
         src @ R.transpose(-1, -2) + t[..., None, :] - dst, dim=-1)
 
 
+@functools.partial(Program, copy_outputs=True)
 def solve_rigid_ransac(noise, src, dst, valid, threshold: float = 0.05):
     """RANSAC rigid 3D-3D (3-point hypotheses, full-inlier refit).
     noise (iters, n) Gumbel draws. Returns dict of R, t (dst = R·src + t),
-    inliers, n_inliers, ok, mean_err."""
+    inliers, n_inliers, ok, mean_err.
+    A captured program: ``threshold`` is keyed by value."""
     idx = ransac_sample_indices(noise, valid, 3)
     Rs, ts, _ = umeyama(gather_rows(src, idx), gather_rows(dst, idx))
     err = _align_err(Rs, ts, src, dst)

@@ -14,9 +14,12 @@ the same manifold integration (``preintegration.preintegrate``) on it:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from zenslam_tpu_torch.imu.preintegration import ImuIntegral, ImuNoise, preintegrate
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def _sorted_valid(ts, vals, mask):
@@ -58,13 +61,18 @@ def gp_posterior_mean(ts, vals, mask, grid, lengthscale, signal_sd, noise_sd):
     return mu + Kx @ alpha
 
 
+@functools.partial(Program, static_argnames=("n_grid", "method"), scalar_argnames=("t0", "t1"),
+                   copy_outputs=True)
 def preintegrate_continuous(ts, gyro, accel, mask, t0, t1, n_grid: int = 64,
                             method: str = "lpm", noise: ImuNoise = ImuNoise(),
                             bias_gyro=None, bias_accel=None,
                             gp_lengthscale=None) -> ImuIntegral:
     """Continuous-time preintegration of [t0, t1] from (overlap-windowed)
     samples: ts (T,) in any order, gyro/accel (T, 3), mask (T,); t0/t1
-    floats or 0-d tensors. Same return contract as ``preintegrate``."""
+    floats or 0-d tensors. Same return contract as ``preintegrate``.
+    A captured program: ``t0`` and ``t1`` are traced (a Python float goes up as a float32
+    device scalar, the value this function makes of it); ``noise`` and ``gp_lengthscale`` are
+    keyed by value."""
     f32, dev = torch.float32, ts.device
     t0 = torch.as_tensor(t0, dtype=f32, device=dev)
     t1 = torch.as_tensor(t1, dtype=f32, device=dev)

@@ -11,9 +11,12 @@ masked sort (invalid rows pushed to +inf) averaging its two middle values
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class GravityEstimator(NamedTuple):
@@ -30,11 +33,14 @@ def gravity_init(capacity: int = 64, device=None) -> GravityEstimator:
         next_slot=torch.zeros((), dtype=torch.int32, device=device))
 
 
+@functools.partial(Program, scalar_argnames=("dt01", "dt12"), copy_outputs=True)
 def gravity_add_sample(est: GravityEstimator, p0, p1, p2, dt01, dt12, R_wb1,
                        mean_accel_body) -> GravityEstimator:
     """Add one sample from three consecutive body positions (world frame) and
     the mean measured body acceleration over the interval; ``dt01``/``dt12``
-    may be floats or 0-d tensors."""
+    may be floats or 0-d tensors.
+    A captured program: ``dt01`` and ``dt12`` are traced (a Python float goes up as a float32
+    device scalar, the value this function makes of it)."""
     dt01 = torch.as_tensor(dt01, dtype=torch.float32, device=p0.device)
     dt12 = torch.as_tensor(dt12, dtype=torch.float32, device=p0.device)
     v01 = (p1 - p0) / torch.clamp(dt01, min=1e-6)
@@ -53,6 +59,7 @@ def gravity_add_sample(est: GravityEstimator, p0, p1, p2, dt01, dt12, R_wb1,
         next_slot=torch.where(ok, (s + 1) % C, s).to(torch.int32))
 
 
+@functools.partial(Program, copy_outputs=True)
 def gravity_estimate(est: GravityEstimator):
     """Component-wise median over accepted samples: (g (3,), ok () bool)."""
     n = est.valid.sum()

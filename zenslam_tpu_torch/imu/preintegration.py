@@ -33,11 +33,13 @@ with the reference to float32 rounding (tests/test_torch_imu.py).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zenslam_tpu_torch.geometry.lie import so3_exp, so3_hat, so3_left_jacobian
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class ImuNoise(NamedTuple):
@@ -88,10 +90,12 @@ def _cumsum(x):
     return torch.cat([torch.zeros_like(x[:1]), c[:-1]]), c[-1]
 
 
+@functools.partial(Program, copy_outputs=True)
 def preintegrate(gyro, accel, dts, mask, noise: ImuNoise = ImuNoise(),
                  bias_gyro=None, bias_accel=None) -> ImuIntegral:
     """Integrate one interval of S masked IMU samples: gyro (S, 3) rad/s,
-    accel (S, 3) m/s², dts (S,) s, mask (S,) bool (padding rows False)."""
+    accel (S, 3) m/s², dts (S,) s, mask (S,) bool (padding rows False).
+    A captured program: ``noise`` (floats) is keyed by value."""
     dev, f32 = gyro.device, torch.float32
     if bias_gyro is None:
         bias_gyro = torch.zeros(3, dtype=f32, device=dev)

@@ -16,6 +16,7 @@ generator state renders the same images in both packages.
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -25,6 +26,8 @@ import torch
 
 from zenslam_tpu_torch.geometry.camera import PinholeCamera, StereoRig
 from zenslam_tpu_torch.pipeline.state import resolve_device
+from zenslam_tpu_torch.utils.device import upload
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def smooth_texture(rng: np.random.Generator, h: int, w: int, octaves: int = 7,
@@ -153,33 +156,49 @@ def render_view_device(world: PlaneWorld, cam: PinholeCamera, R_cw, t_cw,
                        height: int, width: int, device, rays_cam=None) -> torch.Tensor:
     """The same ray-plane render in f32 torch on ``device`` (1024² frames in
     milliseconds on a card instead of seconds on the host). Returns (H, W).
-    ``rays_cam``: as for ``render_view``."""
+    ``rays_cam``: as for ``render_view``. The world's arrays, the pose and
+    the rays go up through pinned memory without blocking, and the render
+    itself is the captured program ``_render_view_device``."""
+    f32 = np.float32
+    arrays = tuple(upload(np.asarray(a, f32), device) for a in (
+        world.normals, world.offsets, world.origins, world.u_axes, world.v_axes,
+        world.textures))
+    rays = None if rays_cam is None else upload(np.asarray(rays_cam, f32), device)
+    return _render_view_device(
+        (*arrays, float(world.tex_scale)), float(cam.fx), float(cam.fy), float(cam.cx),
+        float(cam.cy), upload(np.asarray(R_cw, f32), device),
+        upload(np.asarray(t_cw, f32), device), height, width, rays_cam=rays)
+
+
+@functools.partial(Program, static_argnames=("height", "width"), copy_outputs=True)
+def _render_view_device(world_arrays, fx, fy, cx, cy, R_cw, t_cw, height: int, width: int,
+                        rays_cam=None):
+    """``render_view_device``'s render on the device of its tensors:
+    ``world_arrays`` (normals, offsets, origins, u_axes, v_axes, textures,
+    tex_scale), the last a float; the intrinsics and ``tex_scale`` are keyed
+    by value; ``rays_cam`` (H, W, 3) or None for the pinhole rays."""
+    normals, offsets, origins, u_axes, v_axes, textures, tex_scale = world_arrays
     f32 = torch.float32
-    tex_all = torch.as_tensor(world.textures, dtype=f32, device=device)
-    R_cw = torch.as_tensor(np.asarray(R_cw, np.float32), device=device)
-    t_cw = torch.as_tensor(np.asarray(t_cw, np.float32), device=device)
+    device = R_cw.device
     R_wc = R_cw.T
     c = -R_wc @ t_cw
     if rays_cam is None:
         v, u = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
                               torch.arange(width, dtype=f32, device=device), indexing="ij")
-        rays_cam = torch.stack([(u - float(cam.cx)) / float(cam.fx),
-                                (v - float(cam.cy)) / float(cam.fy), torch.ones_like(u)], -1)
-    else:
-        rays_cam = torch.as_tensor(np.asarray(rays_cam, np.float32), device=device)
+        rays_cam = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], -1)
     rays_w = rays_cam @ R_wc.T
     img = torch.zeros((height, width), dtype=f32, device=device)
     depth = torch.full((height, width), float("inf"), dtype=f32, device=device)
-    TH, TW = tex_all.shape[1], tex_all.shape[2]
-    for p in range(world.normals.shape[0]):
-        n = torch.as_tensor(world.normals[p], device=device)
+    TH, TW = textures.shape[1], textures.shape[2]
+    for p in range(normals.shape[0]):
+        n = normals[p]
         denom = rays_w @ n
         denom = torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
-        tval = -(c @ n + float(world.offsets[p])) / denom
+        tval = -(c @ n + offsets[p]) / denom
         X = c + tval[..., None] * rays_w
-        rel = X - torch.as_tensor(world.origins[p], device=device)
-        tu = (rel @ torch.as_tensor(world.u_axes[p], device=device)) * world.tex_scale
-        tv = (rel @ torch.as_tensor(world.v_axes[p], device=device)) * world.tex_scale
+        rel = X - origins[p]
+        tu = (rel @ u_axes[p]) * tex_scale
+        tv = (rel @ v_axes[p]) * tex_scale
         tui = torch.remainder(tu, TW - 1)
         tvi = torch.remainder(tv, TH - 1)
         x0 = tui.to(torch.int64)
@@ -188,7 +207,7 @@ def render_view_device(world: PlaneWorld, cam: PinholeCamera, R_cw, t_cw,
         fyw = tvi - y0
         x1 = torch.clamp(x0 + 1, max=TW - 1)
         y1 = torch.clamp(y0 + 1, max=TH - 1)
-        tex = tex_all[p]
+        tex = textures[p]
         val = (tex[y0, x0] * (1 - fxw) * (1 - fyw) + tex[y0, x1] * fxw * (1 - fyw)
                + tex[y1, x0] * (1 - fxw) * fyw + tex[y1, x1] * fxw * fyw)
         closer = (tval > 0.1) & (tval < depth)

@@ -6,6 +6,7 @@ surviving extrema, 0 elsewhere) for the same grid selection as FAST."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 
 from zenslam_tpu_torch.ops.harris import upsample_nearest
 from zenslam_tpu_torch.ops.image import gaussian_blur
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def _win3(D, op: str):
@@ -55,6 +57,8 @@ def _octave_score(img, k: float, sigma0: float, n_dog: int, threshold: float,
     return score
 
 
+@functools.partial(Program, static_argnames=("n_octaves", "scales_per_octave", "sigma0",
+                                            "threshold", "edge_r"), copy_outputs=True)
 def dog_score(img, n_octaves: int = 3, scales_per_octave: int = 3, sigma0: float = 1.6,
               threshold: float = 0.01, edge_r: float = 10.0):
     """Dense DoG extremum score, max over octaves at full resolution (coarser

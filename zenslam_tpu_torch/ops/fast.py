@@ -4,10 +4,13 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from zenslam_tpu_torch.ops.image import maxpool3x3
+from zenslam_tpu_torch.utils.graphs import Program
 
 # Bresenham circle of radius 3 (the 16 offsets of FAST_9_16), (dy, dx).
 _CIRCLE = np.array([
@@ -26,10 +29,12 @@ def _shifted(img, dy: int, dx: int):
     return img[ys][:, xs]
 
 
+@functools.partial(Program, static_argnames=("arc_length",), copy_outputs=True)
 def fast_score(img, threshold: float = 10.0 / 255.0, arc_length: int = 9):
     """Dense FAST-N/16 score: sum over the qualifying arc of |I_c - I_p| - t
     where ≥ arc_length contiguous circle pixels are all brighter or all
-    darker than the centre by t; 0 elsewhere. (H, W) f32."""
+    darker than the centre by t; 0 elsewhere. (H, W) f32.
+    A captured program: ``threshold`` is keyed by value."""
     center = img
     ring_b = torch.zeros(img.shape, dtype=torch.int32, device=img.device)
     ring_d = torch.zeros_like(ring_b)
@@ -64,6 +69,8 @@ def _top_k_stable(x, k: int):
     return vals[:k], idx[:k]
 
 
+@functools.partial(Program, static_argnames=("cell_size", "max_keypoints", "border", "subpixel"),
+                   copy_outputs=True)
 def select_grid_keypoints(score, existing_xy, existing_valid, cell_size: int = 16,
                           max_keypoints: int = 512, border: int = 16,
                           subpixel: bool = False):
@@ -128,13 +135,16 @@ def select_grid_keypoints(score, existing_xy, existing_valid, cell_size: int = 1
     return top_xy, top_score, valid
 
 
+@functools.partial(Program, static_argnames=("cell_size", "max_keypoints", "border", "subpixel"),
+                   copy_outputs=True)
 def detect_grid_keypoints(img, existing_xy, existing_valid,
                           threshold: float = 10.0 / 255.0, cell_size: int = 16,
                           max_keypoints: int = 512, mask_radius: float = 8.0,
                           border: int = 16, subpixel: bool = False):
     """FAST + NMS + one best per unoccupied cell + global top-K.
     ``mask_radius`` is kept for the reference's argument order and, as
-    there, unused: occupied cells mask the existing keypoints."""
+    there, unused: occupied cells mask the existing keypoints.
+    A captured program: ``threshold`` is keyed by value."""
     score = fast_score(img, threshold)
     return select_grid_keypoints(score, existing_xy, existing_valid,
                                  cell_size=cell_size, max_keypoints=max_keypoints,

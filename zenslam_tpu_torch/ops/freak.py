@@ -15,6 +15,7 @@ import torch
 from zenslam_tpu_torch.ops.image import bilinear_sample, gaussian_blur
 from zenslam_tpu_torch.ops.orb import orb_orientation, pack_bits
 from zenslam_tpu_torch.utils.device import upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def _retina_pattern() -> np.ndarray:
@@ -58,6 +59,7 @@ def _tables(device):
     return tuple(upload_constant(t, device) for t in _host_tables())
 
 
+@functools.partial(Program, copy_outputs=True)
 def freak_descriptors(img, xy, valid):
     """(packed (N, 8) int32 words of 256-bit codes, invalid rows zero;
     θ (N,) f32)."""

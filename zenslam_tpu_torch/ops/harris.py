@@ -5,15 +5,20 @@ selection as FAST (``ops/fast.select_grid_keypoints``)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from zenslam_tpu_torch.ops.image import gaussian_blur
+from zenslam_tpu_torch.utils.graphs import Program
 
 
+@functools.partial(Program, copy_outputs=True)
 def harris_score(img, k: float = 0.04, sigma_d: float = 1.0, sigma_i: float = 2.0):
     """Dense Harris response det(M) - k tr(M)² of the structure tensor M =
     G_{sigma_i} * [Ix², IxIy; IxIy, Iy²], central-difference gradients (with
-    wrap-around, as the reference's roll) at scale sigma_d."""
+    wrap-around, as the reference's roll) at scale sigma_d.
+    A captured program: ``k``, ``sigma_d`` and ``sigma_i`` are keyed by value."""
     g = gaussian_blur(img, sigma_d)
     gx = 0.5 * (torch.roll(g, -1, 1) - torch.roll(g, 1, 1))
     gy = 0.5 * (torch.roll(g, -1, 0) - torch.roll(g, 1, 0))
@@ -30,10 +35,12 @@ def upsample_nearest(r, f: int, H: int, W: int):
     return r.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)[:H, :W]
 
 
+@functools.partial(Program, static_argnames=("n_scales",), copy_outputs=True)
 def harris_score_multiscale(img, n_scales: int = 3, k: float = 0.04, threshold: float = 1e-7):
     """Max Harris response (constant ``k``) over ``n_scales`` octaves (coarse
     scales on 2x2 averages, nearest-upsampled back). (H, W) f32, 0 below
-    ``threshold``."""
+    ``threshold``.
+    A captured program: ``k`` and ``threshold`` are keyed by value."""
     H, W = img.shape
     score = harris_score(img, k)
     cur = img

@@ -12,9 +12,12 @@ the reference bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def rgb_to_gray(img):
@@ -89,6 +92,7 @@ def _sep_filter2(img, krow, kcol):
     return _shift_add(_reflect_pad(y, c, -1), kcol, img.shape[-1], -1)
 
 
+@functools.partial(Program, static_argnames=("sigma", "radius"), copy_outputs=True)
 def gaussian_blur(img, sigma: float = 1.0, radius: int = 2):
     """Separable Gaussian blur with reflect padding. img: (H, W) or (B, H, W)."""
     k = _gaussian_kernel1d(sigma, radius)
@@ -131,6 +135,7 @@ def _pyr_down(img):
     return torch.matmul(torch.matmul(Dh, img), Dw.T)
 
 
+@functools.partial(Program, static_argnames=("levels",), copy_outputs=True)
 def build_pyramid(img, levels: int = 4):
     """Gaussian pyramid, level 0 = input. Returns a tuple of tensors."""
     pyr = [img]
@@ -166,12 +171,14 @@ def bilinear_sample(img, xy, pad_value: float = 0.0):
             + v10 * (1 - wx) * wy + v11 * wx * wy)
 
 
+@functools.partial(Program, copy_outputs=True)
 def remap(img, map_x, map_y):
     """cv::remap analogue: out[i, j] = img(map_x[i, j], map_y[i, j]),
     bilinear, zero outside (the rectification maps of io/calibration.py)."""
     return bilinear_sample(img, torch.stack([map_x, map_y], dim=-1))
 
 
+@functools.partial(Program, static_argnames=("grid", "nbins"), copy_outputs=True)
 def clahe(img, clip_limit: float = 4.0, grid: int = 8, nbins: int = 256):
     """Contrast-limited adaptive histogram equalization (OpenCV's CLAHE):
     per-tile histogram, clip and redistribute the excess uniformly, CDF
@@ -182,7 +189,8 @@ def clahe(img, clip_limit: float = 4.0, grid: int = 8, nbins: int = 256):
     scaling of 8-bit data decides the bins. Histograms are counted by
     ``index_add_`` of ones over (tile, bin): integer counts in f32, exact in
     any order of the atomics (``bincount`` would read its input's maximum
-    back to the host on CUDA)."""
+    back to the host on CUDA).
+    A captured program: ``clip_limit`` is keyed by value."""
     H, W = img.shape
     th, tw = H // grid, W // grid
     q = torch.clamp((img * (nbins - 1)).to(torch.int64), 0, nbins - 1)
@@ -214,6 +222,7 @@ def clahe(img, clip_limit: float = 4.0, grid: int = 8, nbins: int = 256):
             + lookup(y1, x0) * fy * (1 - fx) + lookup(y1, x1) * fy * fx)
 
 
+@functools.partial(Program, copy_outputs=True)
 def scharr_gradients(img):
     """Scharr x/y gradients with reflect padding, scale 1/32."""
     smooth = np.array([3.0, 10.0, 3.0]) / 16.0

@@ -21,12 +21,14 @@ its ``top_k`` a stable descending sort (ties to the lower index).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from zenslam_tpu_torch.ops.image import bilinear_sample, scharr_gradients
 from zenslam_tpu_torch.ops.orb import pack_bits
+from zenslam_tpu_torch.utils.graphs import Program
 
 _I32_MAX = 2 ** 31 - 1
 
@@ -176,6 +178,8 @@ def point_segment_distance(p, ep):
     return torch.linalg.vector_norm(p[:, None, :] - proj, dim=-1)
 
 
+@functools.partial(Program, static_argnames=("cell_size", "max_keylines", "border"),
+                   copy_outputs=True)
 def detect_keylines(img, existing_ep, existing_valid, mag_threshold: float = 0.06,
                     coherence_threshold: float = 0.6, cell_size: int = 16,
                     max_keylines: int = 64, min_length: float = 12.0,
@@ -188,7 +192,8 @@ def detect_keylines(img, existing_ep, existing_valid, mag_threshold: float = 0.0
     img: (H, W) float32 in [0, 1], H and W divisible by cell_size.
     existing_ep: (M, 2, 2) float32; existing_valid: (M,) bool.
     Returns ep (max_keylines, 2, 2) canonical endpoints, score
-    (max_keylines,) float32, valid (max_keylines,) bool."""
+    (max_keylines,) float32, valid (max_keylines,) bool.
+    A captured program: the float thresholds and lengths are keyed by value."""
     H, W = img.shape
     dev = img.device
     cs = cell_size
@@ -253,12 +258,14 @@ def detect_keylines(img, existing_ep, existing_valid, mag_threshold: float = 0.0
     return top_ep, top_score, valid
 
 
+@functools.partial(Program, static_argnames=("n_along", "n_perp"), copy_outputs=True)
 def keyline_descriptors(img, ep, valid, n_along: int = 16, n_perp: int = 16,
                         perp_step: float = 1.0):
     """Line-aligned binary descriptor, (L, 8) int32 words (uint32 bit
     patterns): an n_along × n_perp intensity patch sampled in the (direction,
     normal) frame of the canonical segment, each sample compared with the
-    patch mean; invalid rows are zero."""
+    patch mean; invalid rows are zero.
+    A captured program: ``perp_step`` is keyed by value."""
     ep = canonicalize_endpoints(ep)
     a, b = ep[:, 0], ep[:, 1]
     d = b - a

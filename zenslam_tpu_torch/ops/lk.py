@@ -15,10 +15,13 @@ public API on the same core; like the reference's, it runs no kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from zenslam_tpu_torch.ops.image import _pyr_down, build_pyramid, scharr_gradients
 from zenslam_tpu_torch.utils.device import resolve_device, upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 def ragged_level_sizes(H: int, W: int, levels: int):
@@ -190,13 +193,15 @@ def _lk_core(prev_stack, prev_gx, prev_gy, next_stack, sizes, pts, init_pts,
     return tracked, ok & valid, err
 
 
+@functools.partial(Program, static_argnames=("radius", "iters"), copy_outputs=True)
 def lk_forward_backward(prev_pyramid, next_pyramid, pts, valid, init_pts=None,
                         radius: int = 10, iters: int = 10,
                         fb_threshold: float = 1.0):
     """Forward-backward consistency tracking on (stack, sizes) pyramids:
     track prev→next, then next→prev from the forward result (initialised at
     the original points); accept if the round trip lands within
-    ``fb_threshold`` px. Returns (tracked (N,2), ok (N,), err (N,))."""
+    ``fb_threshold`` px. Returns (tracked (N,2), ok (N,), err (N,)).
+    A captured program: ``fb_threshold`` is keyed by value."""
     prev_stack, sizes = prev_pyramid
     next_stack, _ = next_pyramid
     if init_pts is None:
@@ -216,6 +221,8 @@ def _is_levels(pyr) -> bool:
     return isinstance(pyr, (tuple, list)) and pyr[0].dim() == 2
 
 
+@functools.partial(Program, static_argnames=("radius", "iters", "use_initial_flow"),
+                   copy_outputs=True)
 def pyramidal_lk(prev_pyramid, next_pyramid, pts, valid, init_pts=None, radius: int = 10,
                  iters: int = 10, eps: float = 0.01, min_eig_threshold: float = 1e-7,
                  use_initial_flow: bool = False):
@@ -226,7 +233,8 @@ def pyramidal_lk(prev_pyramid, next_pyramid, pts, valid, init_pts=None, radius: 
     the stacked buffers; each level's padding is masked by its bounds).
     ``init_pts`` seeds the flow only with ``use_initial_flow``. Returns
     (tracked (N, 2), status (N,) bool, err (N,) mean |residual| of the
-    finest level)."""
+    finest level).
+    A captured program: ``eps`` and ``min_eig_threshold`` are keyed by value."""
     if _is_levels(prev_pyramid):
         prev_stack, sizes = stack_pyramid(prev_pyramid)
         prev_gx, prev_gy = stack_gradients(prev_pyramid)

@@ -20,6 +20,7 @@ import torch
 
 from zenslam_tpu_torch.ops.orb import pack_bits
 from zenslam_tpu_torch.utils.device import upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 BIG = 1 << 20
 
@@ -31,6 +32,7 @@ def unpack_bits(packed):
     return bits.reshape(*packed.shape[:-1], 256).to(torch.float32)
 
 
+@functools.partial(Program, copy_outputs=True)
 def hamming_matrix(packed_a, packed_b):
     """Full Hamming distance matrix (N, M) int32."""
     a = unpack_bits(packed_a)
@@ -66,18 +68,21 @@ def _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_r
     return idx_b, best, ok
 
 
+@functools.partial(Program, static_argnames=("cross_check", "use_ratio"), copy_outputs=True)
 def match_descriptors(packed_a, packed_b, valid_a, valid_b, max_distance: int = 64,
                       ratio: float = 0.8, cross_check: bool = True, use_ratio: bool = False,
                       gate_mask=None):
     """Match A to B descriptors, cross-checked and/or with Lowe's ratio test
     (``best < ratio * second``, when ``use_ratio``). gate_mask: optional (N,
     M) bool of allowed pairs. Returns (idx_b (N,) int32 or -1, dist (N,)
-    int32, ok (N,) bool)."""
+    int32, ok (N,) bool).
+    A captured program: ``max_distance`` and ``ratio`` are keyed by value."""
     D = hamming_matrix(packed_a, packed_b)
     return _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_ratio,
                            gate_mask, BIG)
 
 
+@functools.partial(Program, copy_outputs=True)
 def l2_matrix(desc_a, desc_b):
     """Full squared-L2 distance matrix (N, M) f32: |a|² + |b|² - 2 a·b,
     clamped at 0."""
@@ -86,12 +91,14 @@ def l2_matrix(desc_a, desc_b):
     return torch.clamp(na[:, None] + nb[None, :] - 2.0 * (desc_a @ desc_b.T), min=0.0)
 
 
+@functools.partial(Program, static_argnames=("cross_check", "use_ratio"), copy_outputs=True)
 def match_descriptors_float(desc_a, desc_b, valid_a, valid_b, max_distance: float = 0.35,
                             ratio: float = 0.8, cross_check: bool = True,
                             use_ratio: bool = False, gate_mask=None):
     """L2 matcher for float descriptors; the contract of
     ``match_descriptors`` with a Euclidean (not squared) ``max_distance``,
-    the ratio test on Euclidean distances as Lowe's."""
+    the ratio test on Euclidean distances as Lowe's.
+    A captured program: ``max_distance`` and ``ratio`` are keyed by value."""
     D = torch.sqrt(l2_matrix(desc_a, desc_b) + 1e-12)
     return _select_matches(D, valid_a, valid_b, max_distance, ratio, cross_check, use_ratio,
                            gate_mask, 1e9)
@@ -108,6 +115,7 @@ def _planes(dim: int, device) -> torch.Tensor:
     return upload_constant(_lsh_planes(dim), device)
 
 
+@functools.partial(Program, copy_outputs=True)
 def lsh_binarize(desc):
     """(N, D) float descriptors -> (N, 8) int32 words of 256 sign-of-
     projection bits (SimHash), the bit patterns of the reference's uint32
@@ -115,14 +123,18 @@ def lsh_binarize(desc):
     return pack_bits(desc @ _planes(desc.shape[-1], desc.device) > 0.0)
 
 
+@functools.partial(Program, copy_outputs=True)
 def radius_gate(xy_a, xy_b, radius: float):
-    """(N, M) bool mask: ||a - b|| <= radius."""
+    """(N, M) bool mask: ||a - b|| <= radius.
+    A captured program: ``radius`` is keyed by value."""
     d2 = ((xy_a[:, None, :] - xy_b[None, :, :]) ** 2).sum(-1)
     return d2 <= radius * radius
 
 
+@functools.partial(Program, copy_outputs=True)
 def epipolar_gate(F, uv_a, uv_b, threshold: float):
-    """(N, M) bool mask of pairs within epipolar distance."""
+    """(N, M) bool mask of pairs within epipolar distance.
+    A captured program: ``threshold`` is keyed by value."""
     pa = torch.cat([uv_a, torch.ones_like(uv_a[..., :1])], dim=-1)
     pb = torch.cat([uv_b, torch.ones_like(uv_b[..., :1])], dim=-1)
     lines = pa @ F.T

@@ -11,11 +11,14 @@ agree bit for bit with the reference there.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from zenslam_tpu_torch.ops.image import fma, gaussian_blur
 from zenslam_tpu_torch.utils.device import upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 _PATCH_RADIUS = 15
 
@@ -85,6 +88,7 @@ def orb_moments(img):
     return m10, m01
 
 
+@functools.partial(Program, copy_outputs=True)
 def orb_orientation(img, xy):
     """Intensity-centroid orientation theta = atan2(m01, m10) per keypoint
     (``orb_moments``). img (H, W); xy (N, 2). Returns (N,) radians."""
@@ -106,6 +110,7 @@ def pack_bits(bits):
     return words.to(torch.int32)
 
 
+@functools.partial(Program, copy_outputs=True)
 def orb_descriptors(img, xy, valid):
     """Steered-BRIEF descriptors on the f32 gather path.
 

@@ -17,6 +17,7 @@ import torch
 from zenslam_tpu_torch.ops import cuda_build
 from zenslam_tpu_torch.ops.image import gaussian_blur
 from zenslam_tpu_torch.ops.orb import ORB_PATTERN, _PATCH_RADIUS, pack_bits
+from zenslam_tpu_torch.utils.graphs import inline_programs
 
 _PATTERNS: dict = {}
 
@@ -124,11 +125,13 @@ def orb_steered_brief_plain(sm, xy, valid, needs=None):
     return pack_bits(bits), c, s
 
 
+@inline_programs
 def orb_descriptors_kernel(img, xy, valid, needs=None):
     """Counterpart of ``orb_descriptors_pallas``: blur (σ=2, r=4) and bf16
     cast in plain torch, then ``orb_steered_brief``. Returns (packed (N, 8)
     int32, θ (N,)); with ``needs``, rows outside ``needs & valid`` are
-    undefined."""
+    undefined. A plain wrapper, as the reference's jitted one inlines its
+    blur: the blur program runs inline."""
     sm = gaussian_blur(img, sigma=2.0, radius=4).to(torch.bfloat16)
     if needs is not None:
         need = needs & valid

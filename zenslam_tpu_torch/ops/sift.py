@@ -16,6 +16,7 @@ import torch
 from zenslam_tpu_torch.ops.image import bilinear_sample, gaussian_blur
 from zenslam_tpu_torch.ops.orb import orb_orientation
 from zenslam_tpu_torch.utils.device import upload_constant
+from zenslam_tpu_torch.utils.graphs import Program
 
 _GRID = 4          # 4x4 spatial cells
 _BINS = 8          # orientation bins
@@ -56,9 +57,11 @@ def _tables(device):
     return tuple(upload_constant(t, device) for t in _host_tables())
 
 
+@functools.partial(Program, copy_outputs=True)
 def sift_descriptors(img, xy, valid, scale: float = 1.0):
     """(N, 128) f32 descriptors at keypoints xy (N, 2); invalid rows zero.
-    The pooling over cells is one f32 product with the (16, 256) indicator."""
+    The pooling over cells is one f32 product with the (16, 256) indicator.
+    A captured program: ``scale`` is keyed by value."""
     offsets, cell_ind, gauss_w = _tables(img.device)
     g = gaussian_blur(img, 1.2)
     theta = orb_orientation(g, xy)

@@ -18,11 +18,13 @@ seeded from that pair.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from zenslam_tpu_torch.utils.device import resolve_device  # noqa: F401  (re-exported)
+from zenslam_tpu_torch.utils.graphs import Program
 
 
 class SlamConfig(NamedTuple):
@@ -225,6 +227,7 @@ class FrameTelemetry(NamedTuple):
 _TEL_N_SCALARS = 13  # fields before R_cw/t_cw
 
 
+@functools.partial(Program, copy_outputs=True)
 def pack_telemetry(tel: FrameTelemetry) -> torch.Tensor:
     """Flatten a FrameTelemetry to one (25,) f32 tensor on its device: the 13
     scalars, then R_cw row-major, then t_cw. The host reads a frame with one

@@ -61,7 +61,7 @@ from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
 from zenslam_tpu_torch.ops.sift import sift_descriptors
 from zenslam_tpu_torch.pipeline import lines_step as LS
-from zenslam_tpu_torch.utils.graphs import Program, flatten, fresh, graphs_on
+from zenslam_tpu_torch.utils.graphs import Program, flatten, fresh, graphs_on, inline_programs
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
     frame_generator, pack_telemetry, pyramid_dtype, resolve_use_kernels)
@@ -339,10 +339,13 @@ def _keyframe_decision(cfg, state: SlamState, R_cw, t_cw, n_inliers, tracked_rat
     return first | forced | (gap_ok & (motion_trigger | quality_trigger))
 
 
+@inline_programs
 def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
               noise: CascadeNoise | None = None, imu=None):
     """Process one stereo frame on the device its tensors live on. Returns
-    (new_state, telemetry).
+    (new_state, telemetry). The library programs it calls (``ops/``,
+    ``imu/``, ``estimation/``) run inline, as in the reference's jitted
+    step: an eager call captures nothing.
 
     img_l/img_r: (H, W) float32 in [0, 1]. noise: optional ``CascadeNoise``
     (Gumbel draws of the four RANSAC estimators); None draws them from the

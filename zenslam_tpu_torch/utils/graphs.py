@@ -1,8 +1,11 @@
 """Captured programs — the counterpart of ``jax.jit(fn, static_argnames=...,
 donate_argnames=...)`` as the reference applies it to ``slam_step``, the
-keyframe path's programs (``pipeline/system.py``) and the back end's public
+keyframe path's programs (``pipeline/system.py``), the back end's public
 solvers at their own entry points (``backend/ba.py``, ``pose_graph.py``,
-``bow.py``, ``keyframes.py``, ``map_archive.py``, ``parallel/dist_ba.py``).
+``bow.py``, ``keyframes.py``, ``map_archive.py``, ``parallel/dist_ba.py``)
+and the library functions of the front end, IMU, estimators, telemetry and
+device render (``ops/``, ``imu/``, ``estimation/``,
+``pipeline/state.py:pack_telemetry``, ``io/synthetic.py``).
 
 On CUDA a ``Program`` captures its function into a CUDA graph once for each
 combination of its static arguments, of its inputs' structure, non-tensor
@@ -14,10 +17,14 @@ that graph on every later call:
   every tensor whose storage is not already its buffer, in one
   ``torch._foreach_copy_``. The caller's tensors are never written.
 - Traced scalars (``scalar_argnames``): a Python int passed there goes up as
-  a 0-d int64 device tensor, all of a call's in one upload from pinned
-  memory that does not synchronise, so one capture serves every value (as
-  jit traces a Python int it is not told is static). Other non-tensor
-  leaves are part of the key by value.
+  a 0-d int64 device tensor and a Python float as a 0-d float32 one, all of
+  a call's in one upload from pinned memory that does not synchronise, so
+  one capture serves every value (as jit traces a Python number it is not
+  told is static). A float is traced only where the function turns it into
+  a float32 tensor itself (the same bits either way): an op with a Python
+  float is computed otherwise on CUDA than with a 0-d tensor (division
+  multiplies by the reciprocal). Other non-tensor leaves are part of the
+  key by value.
 - A donated argument's new value (the matching leading element of the
   function's output tuple) is copied, at the end of the graph, into that
   argument's own buffers, and the call returns those buffers: given back to
@@ -34,9 +41,13 @@ that graph on every later call:
   falls back to the eager form.
 - Nesting (jit's rule): a program called while another program's function
   runs (its warm-up, its capture, its CPU run, or its call under
-  ``eager()``) runs its own function inline, with no key, buffers, capture,
-  counters or generator seeding of its own: the outer program is what it
-  would be with a plain function there.
+  ``eager()``), or inside a function wrapped by ``inline_programs`` (the
+  eager ``slam_step``), runs its own function inline, with no key,
+  buffers, capture, counters or generator seeding of its own: the outer
+  program is what it would be with a plain function there. So does a
+  program called while the current CUDA stream is capturing a graph of
+  someone else's (jit inside another trace): it is recorded there as plain
+  kernels.
 - Counters that count Python calls, which a replay does not make: the hand
   kernels' launches (``lk_ragged.launches``, ``orb_steered_brief.launches``)
   and the sharded solver's all-reduces and their floats
@@ -50,6 +61,9 @@ that graph on every later call:
   ``eager()``), so each call draws what a freshly seeded generator draws,
   bit for bit; a capture registers each with its graph, whose replays
   read the generator's seed and offset as they stand at the replay. A
+  static ``torch.Generator`` is registered likewise but not reseeded: its
+  draws advance from call to call as eager draws do (the warm-up's draws
+  are undone before the capture). A
   static argument left None can be given a default made on the inputs'
   device (``static_defaults``), so that a default generator is one the
   graph knows.
@@ -114,6 +128,19 @@ def _running():
         yield
     finally:
         _INLINE_DEPTH -= 1
+
+
+def inline_programs(fn):
+    """``fn`` with every program it calls run inline (jit's nesting rule),
+    as inside a program's function: the eager counterpart of a function
+    that the reference compiles as a whole (``slam_step``,
+    ``orb_descriptors_kernel``) captures nothing of its own."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _running():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def _counters() -> tuple:
@@ -200,22 +227,34 @@ def _side_stream(dev: torch.device):
 
 
 def _generators(static: dict) -> list:
-    """The (generator, seed) pairs that the static arguments draw from (see
-    the module docstring)."""
-    return [pair for v in static.values() if hasattr(v, "seeded_generators")
-            for pair in v.seeded_generators()]
+    """The (generator, seed) pairs that the static arguments draw from, the
+    seed None for a ``torch.Generator`` passed as it is (see the module
+    docstring)."""
+    pairs = []
+    for v in static.values():
+        if hasattr(v, "seeded_generators"):
+            pairs.extend(v.seeded_generators())
+        elif isinstance(v, torch.Generator):
+            pairs.append((v, None))
+    return pairs
 
 
 def _reseed(pairs: list) -> None:
     for g, seed in pairs:
-        g.manual_seed(seed)
+        if seed is not None:
+            g.manual_seed(seed)
 
 
 def _settings() -> tuple:
     """The global settings that choose kernels: part of every key, as a
-    changed flag makes jit trace anew."""
+    changed flag makes jit trace anew; with them the multiply-add form of
+    the blurs and the ORB moments (``ops/image.py:fma``, the fused op or
+    its float64 emulation), which a caller may swap."""
+    from zenslam_tpu_torch.ops import image, orb
+
     return (torch.are_deterministic_algorithms_enabled(),
-            torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+            torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
+            image.fma, orb.fma)
 
 
 class _Captured:
@@ -289,9 +328,12 @@ class _Captured:
             else:
                 side = _side_stream(self.dev)
                 side.wait_stream(torch.cuda.current_stream(self.dev))
+                states = [(g, g.get_state()) for g, seed in self.generators if seed is None]
                 with torch.cuda.stream(side), _running():
                     fn(**self._args())                     # the warm-up: results dropped
                 torch.cuda.current_stream(self.dev).wait_stream(side)
+                for g, st in states:                       # its draws undone
+                    g.set_state(st)
                 before = _read_all()
                 graph = torch.cuda.CUDAGraph()
                 for g, _ in self.generators:
@@ -337,14 +379,30 @@ def _traced_int(v) -> bool:
     return isinstance(v, numbers.Integral) and not isinstance(v, (bool, np.bool_))
 
 
+def _traced_float(v) -> bool:
+    return isinstance(v, (float, np.floating))
+
+
+def _upload_scalars(ints: list, floats: list, dev) -> tuple:
+    """The traced ints (int64) and floats (float32) as 0-d tensors on
+    ``dev``, from one upload of their bytes."""
+    raw = np.concatenate([np.array(ints, np.int64).view(np.uint8),
+                          np.array(floats, np.float32).view(np.uint8)])
+    up = upload(raw, dev)
+    n = 8 * len(ints)
+    return (tuple(up[:n].view(torch.int64)) if ints else (),
+            tuple(up[n:].view(torch.float32)) if floats else ())
+
+
 class Program:
     """``fn`` captured once per key and replayed (see the module docstring).
     ``static_argnames``: arguments that are part of the key by value (jit's
     ``static_argnames``); ``donate_argnames``: arguments whose new values lead
     ``fn``'s output tuple, in that order, and take over their buffers;
-    ``scalar_argnames``: arguments whose Python ints reach ``fn`` as 0-d
-    int64 device tensors, not part of the key; ``static_defaults``: static
-    argument -> ``make(device)``, the value that stands for None there;
+    ``scalar_argnames``: arguments whose Python ints (floats) reach ``fn``
+    as 0-d int64 (float32) device tensors, not part of the key;
+    ``static_defaults``: static argument -> ``make(device)``, the value
+    that stands for None there;
     ``copy_outputs``: return copies the caller owns instead of the static
     outputs."""
 
@@ -368,14 +426,14 @@ class Program:
         bound.apply_defaults()
         static = {n: bound.arguments[n] for n in self.static_argnames}
         if not graphs_on():
-            _reseed(_generators(static))
-            with _running():
-                return self.fn(*args, **kwargs)
+            return self._inline(static, args, kwargs)
         ints = {n: bound.arguments[n] for n in self.scalar_argnames
                 if _traced_int(bound.arguments[n])}
+        floats = {n: bound.arguments[n] for n in self.scalar_argnames
+                  if _traced_float(bound.arguments[n])}
         leaves, specs, ranges = [], {}, {}
         for name, value in bound.arguments.items():
-            if name in static or name in ints:
+            if name in static or name in ints or name in floats:
                 continue
             lo = len(leaves)
             specs[name] = flatten(value, leaves)
@@ -385,12 +443,15 @@ class Program:
         dev = leaves[0].device
         if any(t.device != dev for t in leaves):
             raise ValueError(f"{self.__name__}: every tensor input must be on one device")
-        if ints:    # one upload for the call's traced ints
-            up = upload(np.array([int(v) for v in ints.values()], np.int64), dev)
-            for i, name in enumerate(ints):
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return self._inline(static, args, kwargs)     # inside another's capture
+        if ints or floats:    # one upload for the call's traced scalars
+            up_i, up_f = _upload_scalars([int(v) for v in ints.values()],
+                                         [float(v) for v in floats.values()], dev)
+            for name, t in zip((*ints, *floats), (*up_i, *up_f)):
                 specs[name] = _TENSOR
                 ranges[name] = (len(leaves), len(leaves) + 1)
-                leaves.append(up[i])
+                leaves.append(t)
         for name, make in self.static_defaults.items():
             if static[name] is None:
                 static[name] = make(dev)
@@ -408,6 +469,12 @@ class Program:
         outs = []
         spec = flatten(out, outs)
         return unflatten(spec, iter([t.clone() for t in outs]))
+
+    def _inline(self, static: dict, args, kwargs):
+        """The plain function, its generators seeded as on every run."""
+        _reseed(_generators(static))
+        with _running():
+            return self.fn(*args, **kwargs)
 
 
 def graphs_held() -> int:
