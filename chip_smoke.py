@@ -68,9 +68,11 @@ Phases (each one fatal on failure):
    and ``BackendConfig(telemetry_lag=3)``, ``process_frame`` over the
    80-frame sequence (a throwaway system over every frame and the flush
    first; then frames 0-9 untimed, frames 10-79 and ``flush_pipeline``
-   timed up to a synchronise). Prints ms/frame, fps, the
-   median host ``backend_ms`` per keyframe and of each of its phases,
-   keyframes, BA runs, vocabulary trains, archive size, peak memory, ATE,
+   timed up to a synchronise), with tracing on (``utils/tracing.py``;
+   so are the system runs of system_cg, graphs and dist, whose back-end
+   phases come from its ``backend.*`` spans and whose captures' ms from
+   its ``graphs.capture`` spans). Prints ms/frame, fps, the median host
+   ``backend_ms`` per keyframe and of each back-end phase, keyframes, BA runs, vocabulary trains, archive size, peak memory, ATE,
    pose_ok, launches, and the host syncs (the system's waits on its
    device->host copies by kind, and every implicit synchronise that
    ``torch.cuda.set_sync_debug_mode`` reports, by source line). Requires 2
@@ -111,7 +113,8 @@ Phases (each one fatal on failure):
    ``make_slam_step`` eager, graphed, graphed, eager: every frame's state
    and telemetry bit-identical, host ms/frame, device busy ms, idle share,
    device kernels and graph launches a frame (``torch.profiler`` over
-   PROFILE_FRAMES frames), the capture's ms, peak memory, 2 LK + 1 ORB
+   PROFILE_FRAMES frames), the capture's ms (the first graphed run
+   traced), peak memory, 2 LK + 1 ORB
    launches a frame counted through the replays, and the device time of
    the state's copy into its buffers; (b) the system phase's 80 frames
    through ``process_frame`` eager then graphed: the same keyframes, BA
@@ -129,7 +132,8 @@ Phases (each one fatal on failure):
    SPILL_FRAMES frames of the reference's slot-pressure orbit
    (``tests/test_map_spill.py``, a 384-slot map): more than 200 spills and
    some reloads, as that test asks, the reload program called;
-   then every program's capture ms, and that the library programs the
+   then each system program's captures' ms in the traced runs, and that
+   the library programs the
    system's programs call in their functions (the solvers, the keyframe,
    BoW and reload functions) captured nothing over the phase: inline
    there, as jit inlines a nested jit; nor did the front end's, IMU's and
@@ -1371,6 +1375,45 @@ def backend_spans(system_module, records, spans: list):
         system_module._keyframe_backend = inner
 
 
+CAPTURES: list = []     # (program, ms) of each capture in a traced block
+
+
+@contextlib.contextmanager
+def traced(spans: list):
+    """Tracing (``utils/tracing.py``) on over the block and off after it: a
+    program captured inside carries its device stamps, under a key of its
+    own. ``spans`` then holds the block's host spans; its captures (their
+    ``graphs.capture`` spans: warm-up + capture) are added to CAPTURES."""
+    from zenslam_tpu_torch.utils import tracing
+
+    tracing.enable()
+    try:
+        yield
+        got = tracing.collect()
+    finally:
+        tracing.disable()
+    require(got["dropped"] == 0, f"tracing: {got['dropped']} records lost to a wrapped ring")
+    spans += got["host"]
+    CAPTURES.extend((x.detail, (x.end - x.start) * 1e-6) for x in got["host"]
+                    if x.name == "graphs.capture")
+
+
+def backend_phases(spans, since: int = 0) -> dict:
+    """Each keyframe back-end phase's host ms a keyframe: the ``backend.*``
+    spans among ``spans`` that started at ``since`` (perf_counter ns) or
+    later, by phase."""
+    out = {}
+    for x in spans:
+        if x.name.startswith("backend.") and x.start >= since:
+            out.setdefault(x.name[len("backend."):], []).append((x.end - x.start) * 1e-6)
+    return out
+
+
+def captures_of(program) -> list:
+    """The ms of each capture of ``program`` in the traced blocks so far."""
+    return [round(ms, 1) for name, ms in CAPTURES if name == program.__name__]
+
+
 def phase_system(dev):
     import torch
 
@@ -1378,7 +1421,7 @@ def phase_system(dev):
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
     from zenslam_tpu_torch.pipeline import system
 
-    rec, snap, spans, box = {}, {}, [], {}
+    rec, snap, spans, box, host = {}, {}, [], {}, []
 
     @contextlib.contextmanager
     def timed():
@@ -1386,14 +1429,15 @@ def phase_system(dev):
         from here on, the implicit synchronises by back-end call."""
         s = rec["system"]
         torch.cuda.reset_peak_memory_stats()
-        snap.update(kf0=s.n_keyframes, reads0=Counter(s.host_reads))
+        snap.update(kf0=s.n_keyframes, reads0=Counter(s.host_reads), t0=time.perf_counter_ns())
         with implicit_syncs() as records, backend_spans(system, records, spans):
             box["records"] = records
             yield
 
     reset_launches()
-    fps, _, _ = run_full_system_fps(SIZE, SIZE, SYSTEM_FRAMES, SYSTEM_WARMUP, device=dev,
-                                    record=rec, around=timed())
+    with traced(host):
+        fps, _, _ = run_full_system_fps(SIZE, SIZE, SYSTEM_FRAMES, SYSTEM_WARMUP, device=dev,
+                                        record=rec, around=timed())
     s, seq, tels, infos, records = (rec["system"], rec["seq"], rec["tels"], rec["infos"],
                                     box["records"])
     cfg, bcfg = s.cfg, s.bcfg
@@ -1405,10 +1449,7 @@ def phase_system(dev):
     timed_rows = infos[rec["n_warmup_rows"]:]
     n_kf = s.n_keyframes - snap["kf0"]
     backend = [i["backend_ms"] for i in timed_rows if i["backend_ms"] > 0]
-    phases = {}
-    for i in timed_rows:
-        for k, v in i.get("phases", {}).items():
-            phases.setdefault(k, []).append(v)
+    phases = backend_phases(host, snap["t0"])
     R = np.stack([t.R_cw for t in tels])
     tt = np.stack([t.t_cw for t in tels])
     pose_ok = np.array([float(t.pose_ok) for t in tels])
@@ -1424,8 +1465,7 @@ def phase_system(dev):
           f"ms/frame, {fps:.2f} fps, peak "
           f"{peak:.1f} MiB; backend_ms median {float(np.median(backend)):.2f} over "
           f"{len(backend)} keyframes (min {min(backend):.2f}, max {max(backend):.2f})")
-    print("[system] phase medians (host ms per keyframe): " + ", ".join(
-        f"{k} {float(np.median(v)):.3f}" for k, v in phases.items()))
+    print(f"[system] phase medians (host ms a keyframe, backend.* spans): {phase_line(phases)}")
     print(f"[system] keyframes {s.n_keyframes} ({n_kf} timed), BA runs {s.n_ba_runs}, vocabulary "
           f"trains {s.n_vocab_trains}, loop closures {s.n_loop_closures}, relocs {s.n_relocs}, "
           f"archive {len(s.archive)} rows ({s.archive.n_reloads} reloads); pose_ok "
@@ -1459,7 +1499,7 @@ def phase_system(dev):
     dense = {"R": R, "t": tt, "is_kf": np.array([bool(t.is_keyframe) for t in tels]),
              "kf_t": s.kf_db.t.cpu().numpy(), "kf_valid": s.kf_db.valid.cpu().numpy(),
              "n_keyframes": s.n_keyframes, "n_ba_runs": s.n_ba_runs, "backend_ms": backend,
-             "ba_dispatch": phases.get("ba_dispatch", [])}
+             "ba_dispatch": phases["ba_dispatch"]}
     return launches, dense
 
 
@@ -1470,26 +1510,29 @@ def timed_system_run(s, seq) -> dict:
     synchronises of the timed frames recorded. Returns the launches, seconds,
     frame poses ``R``, ``t``, keyframe flags, pose_ok share after frame 0,
     ATE, BA runs ([rmse before, after, dropped observations]), the timed
-    keyframes' ``backend_ms`` and ``ba_dispatch`` host ms, and the records."""
+    keyframes' ``backend_ms`` and ``ba_dispatch`` host ms (its
+    ``backend.ba_dispatch`` spans; the pass runs with tracing on), the
+    pass's host spans and the records."""
     import torch
 
     from zenslam_tpu_torch.eval.bench import system_pass
     from zenslam_tpu_torch.eval.metrics import ate_rmse, camera_positions
 
-    box = {}
+    box, host = {}, []
 
     @contextlib.contextmanager
     def timed():
         torch.cuda.reset_peak_memory_stats()
+        box["t0"] = time.perf_counter_ns()
         with implicit_syncs() as records:
             box["records"] = records
             yield
 
     rec = {}
-    dt, backend = system_pass(s, seq.left, seq.right, SYSTEM_WARMUP, record=rec,
-                              around=timed())
+    with traced(host):
+        dt, backend = system_pass(s, seq.left, seq.right, SYSTEM_WARMUP, record=rec,
+                                  around=timed())
     tels, infos = rec["tels"], rec["infos"]
-    timed_rows = infos[rec["n_warmup_rows"]:]
     R = np.stack([t.R_cw for t in tels])
     tt = np.stack([t.t_cw for t in tels])
     return {"launches": rec["launches"], "dt": dt, "R": R, "t": tt, "tels": tels,
@@ -1498,9 +1541,8 @@ def timed_system_run(s, seq) -> dict:
             "ate": ate_rmse(camera_positions(R, tt), camera_positions(seq.R_lw, seq.t_lw)),
             "runs": [i["ba"].cpu().numpy() for i in infos if i["ba"] is not None],
             "backend_ms": backend,
-            "ba_dispatch": [i["phases"]["ba_dispatch"] for i in timed_rows
-                            if "ba_dispatch" in i.get("phases", {})],
-            "records": box["records"]}
+            "ba_dispatch": backend_phases(host, box["t0"])["ba_dispatch"],
+            "spans": host, "records": box["records"]}
 
 
 def window_syncs(records, path_part: str) -> Counter:
@@ -3054,14 +3096,14 @@ def dist_system_run(seq, n_shards: int, dense: dict, tag: str) -> tuple:
     from zenslam_tpu_torch.utils import graphs
 
     mesh = system._live_ba_mesh(n_shards, s.device)
-    captures = [round(c.capture_ms, 1) for c in system._WINDOWED_BA.captured.values()
-                if c.static.get("mesh") is mesh]
+    captures = [round((x.end - x.start) * 1e-6, 1) for x in run["spans"]
+                if x.name == "graphs.capture" and x.detail == system._WINDOWED_BA.__name__]
     print(f"[{tag}] graphed / eager: {dt / n * 1e3:.2f} ms/frame ({n} timed frames) / "
           f"{e_ms:.2f} ({SYSTEM_FRAMES} frames); ba_dispatch median "
           f"{float(np.median(dispatch)):.3f} / {float(np.median(e_x['phases']['ba_dispatch'])):.3f}"
           f" ms; the dist window's calls over the graphed run {replays['ba']} "
           f"({graphs.calls(system._WINDOWED_BA, solver='dist', mesh=mesh)} over the process), "
-          f"its capture {captures} ms")
+          f"the windowed BA's captures in the run {captures} ms")
     require(replays["ba"] == s.n_ba_runs,
             f"{tag}: {replays['ba']} dist window calls for {s.n_ba_runs} BA runs")
     kf_t, kf_v = s.kf_db.t.cpu().numpy(), s.kf_db.valid.cpu().numpy()
@@ -4273,8 +4315,9 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
     """A system run over ``frames`` frames through ``process_frame`` and
     ``flush_pipeline`` (graphed, or under ``graphs.eager()``): (outputs,
     host ms/frame up to a synchronise, median ``backend_ms``, the system,
-    {"phases": each back-end phase's host ms per keyframe, "calls": each
-    program's calls over the run})."""
+    {"phases": each back-end phase's host ms per keyframe (its ``backend.*``
+    spans; the run has tracing on), "calls": each program's calls over the
+    run})."""
     import torch
 
     from zenslam_tpu_torch.pipeline import SlamConfig
@@ -4285,9 +4328,9 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
     frames = frames or SYSTEM_FRAMES
     s = create_system(cfg or SlamConfig(), bcfg or BackendConfig(telemetry_lag=3), seq.rig,
                       shape, device=dev)
-    tels, backend = [], []
+    tels, backend, host = [], [], []
     calls0 = program_calls(s)
-    with contextlib.nullcontext() if graphed else eager():
+    with traced(host), contextlib.nullcontext() if graphed else eager():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = [process_frame(s, seq.left[t], seq.right[t]) for t in range(frames)]
@@ -4299,12 +4342,8 @@ def graphed_system(seq, dev, graphed: bool, bcfg=None, frames=None, shape=(SIZE,
             tels.append(tel)
         if info["backend_ms"] > 0:
             backend.append(info["backend_ms"])
-    phases = {}
-    for _, info in rows:
-        for k, v in info.get("phases", {}).items():
-            phases.setdefault(k, []).append(v)
     return (system_outputs(s, tels), ms, float(np.median(backend)), s,
-            {"phases": phases, "calls": since_calls(calls0, s)})
+            {"phases": backend_phases(host), "calls": since_calls(calls0, s)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -4340,7 +4379,9 @@ def epoch_once(s) -> None:
 def vocab_once(s) -> None:
     """The vocabulary programs, which run once a system (the first train)
     or rarely (a retrain), on ``s``'s keyframe database: host ms of one
-    call eager, its capture's ms, and one replay, up to a synchronise."""
+    call eager, its captures' ms in the traced system runs, and one
+    replay, up to a synchronise (with tracing on, as ``s`` ran: the
+    replay replays that run's capture)."""
     import torch
 
     from zenslam_tpu_torch.backend.bow import GeneratorDraw
@@ -4355,15 +4396,15 @@ def vocab_once(s) -> None:
     progs = {"first train": system.build_vocabulary_tree, "retrain": system._RETRAIN}
     for name, fn in calls.items():
         ms = {}
-        for how in ("eager", "replay"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eager_call(fn) if how == "eager" else fn()
-            torch.cuda.synchronize()
-            ms[how] = (time.perf_counter() - t0) * 1e3
+        with traced([]):
+            for how in ("eager", "replay"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eager_call(fn) if how == "eager" else fn()
+                torch.cuda.synchronize()
+                ms[how] = (time.perf_counter() - t0) * 1e3
         print(f"[graphs] vocabulary {name}: eager {ms['eager']:.2f} ms, replay {ms['replay']:.2f} "
-              f"ms (host, up to a synchronise); captures "
-              f"{[round(c.capture_ms, 1) for c in progs[name].captured.values()]} ms")
+              f"ms (host, up to a synchronise); captures {captures_of(progs[name])} ms")
 
 
 def phase_graphs(seq, dev) -> dict:
@@ -4391,9 +4432,11 @@ def phase_graphs(seq, dev) -> dict:
     runs, peak, launches = [], {}, Counter()
     for i, graphed in enumerate((False, True, True, False)):
         torch.cuda.reset_peak_memory_stats()
-        held0, cap0 = graphs.graphs_held(), len(graphs.capture_ms())
+        held0, host = graphs.graphs_held(), []
         before = read_launches()
-        runs.append(slice_run(seq, dev, graphed, states=i < 2))
+        # the first graphed run traced, for its captures' ms (graphs.capture spans)
+        with traced(host) if i == 1 else contextlib.nullcontext():
+            runs.append(slice_run(seq, dev, graphed, states=i < 2))
         if not graphed:
             eager_held.append(graphs.graphs_held() - held0)
         if graphed:
@@ -4401,7 +4444,8 @@ def phase_graphs(seq, dev) -> dict:
         if i >= 2:      # the runs that keep no state copies
             peak[graphed] = torch.cuda.max_memory_allocated() / 2 ** 20
         if i == 1:
-            capture = graphs.capture_ms()[cap0:]
+            capture = [round((x.end - x.start) * 1e-6, 1) for x in host
+                       if x.name == "graphs.capture"]
             held = graphs.graphs_held() - held0
     e1, g1, g2, e2 = runs
     launches = dict(launches)
@@ -4528,9 +4572,9 @@ def phase_graphs(seq, dev) -> dict:
             f"graphs: the slot-pressure orbit spilled {a.n_spills} and reloaded {a.n_reloads}")
     held_program_calls("graphs: slot-pressure orbit", gsp, gsp_x["calls"], SPILL_FRAMES)
     for name, prog in keyframe_programs(gs).items():
-        print(f"[graphs] captures of {name} (warm-up + capture, ms, one a key; the snapshot "
-              f"and epoch programs (b)'s system's): "
-              f"{[round(c.capture_ms, 1) for c in prog.captured.values()]}")
+        print(f"[graphs] captures of {name} in the traced system runs (warm-up + capture, ms, "
+              f"one a key; graphs.capture spans by program name): "
+              f"{captures_of(prog) if prog is not None else []}")
     nested = {k: len(p.captured) - nested0[k] for k, p in nested_programs().items()}
     print(f"[graphs] captures of the library programs called inside the system's programs, "
           f"over this phase (inline there, as jit inlines a nested jit): {nested}")

@@ -48,6 +48,7 @@ from zenslam_tpu_torch.io import synthetic as port_synthetic
 from zenslam_tpu_torch.pipeline import system as psystem
 from zenslam_tpu_torch.pipeline.runner import run_sequence
 from zenslam_tpu_torch.pipeline.state import SlamConfig
+from zenslam_tpu_torch.utils import tracing
 from test_torch_backend import reference_draw
 
 torch.set_num_threads(2)
@@ -152,9 +153,14 @@ def test_keyframe_backend_teacher_forced(seq, reference):
     draws = psystem.BackendDraws(vocab=reference_draw(jax.random.PRNGKey(cap["vocab_key"])),
                                  loop_noise=_loop_noise(frame, k, CFG["max_keypoints"]))
     info = {}
-    psystem._keyframe_backend(ps, snap, frame, info, draws=draws)
-    assert set(info["phases"]) >= {"spill_resolve", "resolve", "kf_add", "loop_issue",
-                                   "ba_dispatch", "spill_pack"}
+    tracing.enable()
+    try:
+        psystem._keyframe_backend(ps, snap, frame, info, draws=draws)
+        phases = {x.name for x in tracing.collect()["host"]}
+    finally:
+        tracing.disable()
+    assert phases >= {"backend.spill_resolve", "backend.resolve", "backend.kf_add",
+                      "backend.loop_issue", "backend.ba_dispatch", "backend.spill_pack"}
     assert info["loop"] is True
     out = convert.system_to_numpy(ps)
     for name in ("n_keyframes", "n_loop_closures", "n_ba_runs", "last_kf_slot", "last_vocab_kfs"):

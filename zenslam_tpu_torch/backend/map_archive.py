@@ -186,7 +186,8 @@ class LandmarkArchive:
             return lmap
         rows = np.nonzero(self.dormant)[0]
         X = self.xyz[rows]
-        pose = HostCopy(torch.cat([R_cw.detach().reshape(9), t_cw.detach().reshape(3)])).numpy()
+        pose = HostCopy(torch.cat([R_cw.detach().reshape(9),
+                                   t_cw.detach().reshape(3)])).numpy("reload")
         R = pose[:9].reshape(3, 3).astype(np.float32)
         t = pose[9:].astype(np.float32)
         xc = X @ R.T + t
@@ -219,7 +220,7 @@ class LandmarkArchive:
         rows_b[:n, 5:] = self.desc[cand].reshape(n, D).view(np.int32)
         new_lmap, aux = insert(lmap, upload(block, lmap.xyz.device))
         # one fetch for the insert outcome (slot, placed, new generation)
-        aux = HostCopy(aux).numpy()
+        aux = HostCopy(aux).numpy("reload")
         slot_np = aux[:K].astype(np.int64)
         placed_np = aux[K:2 * K] > 0.5
         gen_np = aux[2 * K:].astype(np.int64)

@@ -23,6 +23,14 @@ The reference's ``.at[].set(mode="drop")`` scatters become explicit masks:
 dropped rows go to a spare row past the end of the table
 (``frontend/tables.scatter_drop``).
 
+With tracing on (``utils/tracing.py``) the step stamps the device at the
+start of each stage (``step.pyramid`` with CLAHE, ``step.predict`` with the
+IMU preintegration, ``step.track``, ``step.detect``, ``step.describe``,
+``step.associate``, ``step.rematch``, ``step.stereo``, ``step.keylines``,
+``step.estimate``, ``step.map`` with the line map, ``step.keyframe`` with the
+motion update, ``step.vio``) inside a ``slam_step`` span, and the captured
+step's packing is ``step.pack``: consecutive stamps tile the step.
+
 ``slam_step`` is the eager function; ``make_slam_step`` returns it as a
 captured program (``SlamStep``, one CUDA graph per configuration and shape,
 its state updated in place), as the reference returns its jitted step.
@@ -61,6 +69,7 @@ from zenslam_tpu_torch.ops.orb import orb_descriptors
 from zenslam_tpu_torch.ops.orb_cuda import orb_descriptors_kernel
 from zenslam_tpu_torch.ops.sift import sift_descriptors
 from zenslam_tpu_torch.pipeline import lines_step as LS
+from zenslam_tpu_torch.utils import tracing
 from zenslam_tpu_torch.utils.graphs import Program, flatten, fresh, graphs_on, inline_programs
 from zenslam_tpu_torch.pipeline.state import (
     FeatureTable, FrameTelemetry, MotionModel, SlamConfig, SlamState, VioState,
@@ -355,6 +364,8 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     dev = img_l.device
     use_k = resolve_use_kernels(cfg, dev)
     N = cfg.max_keypoints
+    tracing.begin("slam_step", dev)
+    tracing.stage("step.pyramid", dev)
     if cfg.use_clahe:   # before the pyramid, detection and description
         img_l = clahe(img_l, clip_limit=cfg.clahe_clip)
         img_r = clahe(img_r, clip_limit=cfg.clahe_clip)
@@ -363,6 +374,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     F_rig = fundamental_from_rig(rig)
 
     # ---- PREDICT (IMU preintegration and the inertial prediction) ----------
+    tracing.stage("step.predict", dev)
     R_pred, t_pred = _predict_pose(state)
     pred_sigma_p = None
     if imu is not None:
@@ -377,6 +389,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
             torch.diagonal(integral.cov[6:9, 6:9]).sum() / 3.0, min=1e-18))
 
     # ---- TRACK (temporal) --------------------------------------------------
+    tracing.stage("step.track", dev)
     prev_xy = state.features.xy
     prev_lm_idx = state.features.lm_idx
     prev_desc = state.features.desc
@@ -387,21 +400,26 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     tracked_ratio = n_tracked / torch.clamp(n_prev_valid, min=1)
 
     # ---- DETECT top-up -----------------------------------------------------
+    tracing.stage("step.detect", dev)
     feats, n_detected, next_track_id = _detect_topup(cfg, img_l, feats, state.next_track_id)
 
     # ---- DESCRIBE ----------------------------------------------------------
+    tracing.stage("step.describe", dev)
     feats = feats._replace(desc=_describe(cfg, use_k, img_l, feats))
 
     # ---- ASSOCIATE lost landmarks ------------------------------------------
+    tracing.stage("step.associate", dev)
     feats, _ = _associate_landmarks(cfg, rig, feats, state.lmap, R_pred, t_pred)
 
     # ---- TEMPORAL REMATCH --------------------------------------------------
     if cfg.use_temporal_rematch:
+        tracing.stage("step.rematch", dev)
         feats, _ = _temporal_rematch(
             cfg, rig, feats, prev_desc, prev_xy, prev_lm_idx, prev_feat_valid,
             track2d_ok, state.R_cw, state.t_cw, R_pred, t_pred, state.lmap)
 
     # ---- STEREO + TRIANGULATE ----------------------------------------------
+    tracing.stage("step.stereo", dev)
     feats, X_cam, tri_ok = _stereo_and_triangulate(cfg, use_k, rig, pyr_l, pyr_r,
                                                    feats, F_rig)
 
@@ -410,6 +428,8 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     zero = torch.zeros((), dtype=_I32, device=dev)
     n_lines = n_line_tri = line_map_size = zero
     if cfg.use_keylines:
+        tracing.stage("step.keylines", dev)
+
         def lk_temporal(pts, v, init_pts=None):
             return _lk_fb(cfg, use_k, state.prev_pyr_l, pyr_l, pts, v, init_pts=init_pts)
 
@@ -427,6 +447,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         n_line_tri = line_tri_ok.sum()
 
     # ---- ESTIMATE (cascade) ------------------------------------------------
+    tracing.stage("step.estimate", dev)
     lmap = state.lmap
     M = lmap.valid.shape[0]
     has_lm = feats.valid & (feats.lm_idx >= 0)
@@ -469,6 +490,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
     R_cw, t_cw = est.R, est.t
 
     # ---- MAP UPDATE --------------------------------------------------------
+    tracing.stage("step.map", dev)
     Rwc, twc = se3_inverse(R_cw, t_cw)
     X_w_new = se3_apply(Rwc, twc, X_cam)
     new_lm_cand = feats.valid & (feats.lm_idx < 0) & tri_ok
@@ -514,6 +536,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         line_map_size = line_map.valid.sum()
 
     # ---- KEYFRAME ----------------------------------------------------------
+    tracing.stage("step.keyframe", dev)
     is_kf = _keyframe_decision(cfg, state, R_cw, t_cw, est.n_inliers, tracked_ratio)
     last_kf_R = torch.where(is_kf, R_cw, state.last_kf_R)
     last_kf_t = torch.where(is_kf, t_cw, state.last_kf_t)
@@ -534,6 +557,7 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         n_updates=(mm.n_updates + 1).to(_I32))
     vio = state.vio
     if imu is not None:
+        tracing.stage("step.vio", dev)
         vio = _vio_update(rig, vio, integral, accel, imu_mask, state.R_cw, state.t_cw,
                           R_cw, t_cw, est.ok)
 
@@ -550,14 +574,17 @@ def slam_step(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
         tracked_ratio=tracked_ratio, is_keyframe=is_kf, map_size=lmap.valid.sum(),
         n_lines=n_lines, n_line_triangulated=n_line_tri, line_map_size=line_map_size,
         R_cw=R_cw, t_cw=t_cw)
+    tracing.end("slam_step", dev)
     return new_state, telem
 
 
 def _step_program(cfg: SlamConfig, rig: StereoRig, state: SlamState, img_l, img_r,
                   noise: CascadeNoise, imu):
     """The body of the captured step: ``slam_step`` with its noise given,
-    and the telemetry also packed (``pack_telemetry``) inside the program."""
+    and the telemetry also packed (``pack_telemetry``) inside the program
+    (a stage of its own, up to the program's last node)."""
     new_state, tel = slam_step(cfg, rig, state, img_l, img_r, noise=noise, imu=imu)
+    tracing.stage("step.pack", img_l.device)
     return new_state, tel, pack_telemetry(tel)
 
 
@@ -614,15 +641,17 @@ class SlamStep:
                 "overwritten it in place (the state is donated): copy a state "
                 "(graphs.fresh) to keep it past the next call")
         if noise is None:
-            noise = draw_cascade_noise(frame_generator(state, dev), cfg.max_keypoints,
-                                       cfg.pnp_iters, cfg.rigid_iters, cfg.essential_iters, dev,
-                                       n_pnp=_pnp_width(cfg))
+            with tracing.span("frame.noise"):
+                noise = draw_cascade_noise(frame_generator(state, dev), cfg.max_keypoints,
+                                           cfg.pnp_iters, cfg.rigid_iters, cfg.essential_iters,
+                                           dev, n_pnp=_pnp_width(cfg))
         if imu is not None:
             imu = (*(torch.as_tensor(x, dtype=torch.float32, device=dev) for x in imu[:3]),
                    torch.as_tensor(imu[3], device=dev).to(torch.bool))
-        new_state, tel, packed = self.program(cfg, self.rig,
-                                              state._replace(rng_seed=0, rng_step=0),
-                                              img_l, img_r, noise, imu)
+        with tracing.span("frame.replay"):
+            new_state, tel, packed = self.program(cfg, self.rig,
+                                                  state._replace(rng_seed=0, rng_step=0),
+                                                  img_l, img_r, noise, imu)
         new_state = new_state._replace(rng_seed=state.rng_seed, rng_step=state.rng_step + 1)
         if graphed:
             self._issued.update(dict.fromkeys(self._buffers(new_state), new_state.rng_step))

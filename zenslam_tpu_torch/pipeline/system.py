@@ -41,6 +41,13 @@ and are waited on where they are read; ``SlamSystem.host_reads`` counts
 those waits by kind. Host values go up through pinned memory
 (``utils/device.py:upload``), so the keyframe path does not synchronise.
 
+With tracing on (``utils/tracing.py``) a frame is a ``frame`` span with
+``frame.upload``, ``frame.noise``, ``frame.replay``, ``frame.snapshot``,
+``hostio.wait`` and ``frame.backend`` inside, the back end's phases are
+``backend.*`` spans, and each captured program stamps the device. A lagged
+frame's telemetry wait and keyframe back end run inside a later call's
+span and serve their own frame.
+
 Randomness is injected: ``process_frame`` takes the front end's
 ``CascadeNoise`` and ``_keyframe_backend`` a ``BackendDraws``; without them
 each draw comes from a ``torch.Generator`` seeded by the integer the
@@ -76,6 +83,7 @@ from zenslam_tpu_torch.geometry.lie import se3_compose, se3_inverse
 from zenslam_tpu_torch.ops.match import lsh_binarize, match_descriptors
 from zenslam_tpu_torch.parallel.dist_ba import (
     dist_bundle_adjust, make_ba_mesh, shard_ba_problem_device)
+from zenslam_tpu_torch.utils import tracing
 from zenslam_tpu_torch.utils.graphs import Program, fresh
 from zenslam_tpu_torch.pipeline.state import (
     MotionModel, SlamConfig, SlamState, init_state, resolve_device, unpack_telemetry)
@@ -688,7 +696,7 @@ def _try_loop_closure(sys: SlamSystem, kf_slot: int, frame_idx: int,
         packed = _loop_issue(sys, kf_slot, frame_idx)
     k = min(bcfg.bow_top_k, bcfg.max_keyframes)
     sys.host_reads["loop"] += 1
-    p = packed.numpy()
+    p = packed.numpy("loop")
     scores = p[0:k]
     frames = p[k:2 * k].astype(np.int64)
     slots = p[2 * k:3 * k].astype(np.int64)
@@ -810,9 +818,15 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
     state's generator). ``imu``: optional (gyro (S, 3), accel (S, 3), dts
     (S,), mask (S,)), arrays or tensors, the IMU samples of the interval
     ending at this frame (the VIO branch)."""
-    t0 = time.time()
-    img_l = torch.as_tensor(img_l, dtype=torch.float32, device=sys.device)
-    img_r = torch.as_tensor(img_r, dtype=torch.float32, device=sys.device)
+    with tracing.span("frame", frame=sys.n_frames):
+        return _process_frame(sys, img_l, img_r, imu, noise)
+
+
+def _process_frame(sys: SlamSystem, img_l, img_r, imu, noise):
+    t0 = time.perf_counter()
+    with tracing.span("frame.upload"):
+        img_l = torch.as_tensor(img_l, dtype=torch.float32, device=sys.device)
+        img_r = torch.as_tensor(img_r, dtype=torch.float32, device=sys.device)
     if sys.step is None:
         sys.step = SlamStep(sys.cfg, sys.rig)
     sys.state, _, packed = sys.step._run(sys.state, img_l, img_r, noise=noise, imu=imu)
@@ -821,15 +835,17 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
     L = sys.bcfg.telemetry_lag
     if L > 0:
         frame = sys.n_frames - 1
-        sys._tel_queue.append((packed, _snapshot(sys, _ring_slot(sys, frame)), frame))
+        with tracing.span("frame.snapshot"):
+            snap = _snapshot(sys, _ring_slot(sys, frame))
+        sys._tel_queue.append((packed, snap, frame))
         if len(sys._tel_queue) <= L:
-            return None, _info(None, (time.time() - t0) * 1000)
+            return None, _info(None, (time.perf_counter() - t0) * 1000)
         packed, snap, frame_idx = sys._tel_queue.pop(0)
     else:
         snap, frame_idx = None, sys.n_frames - 1
     sys.host_reads["telemetry"] += 1
-    tel = unpack_telemetry(packed.numpy())
-    t1 = time.time()
+    tel = unpack_telemetry(packed.numpy("telemetry", frame_idx))
+    t1 = time.perf_counter()
     backend_info = _info(frame_idx, (t1 - t0) * 1000)
     # relocalisation watchdog on the (possibly lagged) pose_ok the host holds
     if (sys.bcfg.enable_relocalization and sys.bcfg.enable_loop_closure
@@ -850,10 +866,11 @@ def process_frame(sys: SlamSystem, img_l, img_r, imu=None, noise=None):
                     sys._lost_count = 0
                     sys._reloc_cooldown = sys.bcfg.reloc_cooldown
     if bool(tel.is_keyframe):
-        if snap is None:
-            snap = _snapshot(sys, NOW)
-        _keyframe_backend(sys, snap, frame_idx, backend_info)
-        backend_info["backend_ms"] = (time.time() - t1) * 1000
+        with tracing.span("frame.backend", frame=frame_idx):
+            if snap is None:
+                snap = _snapshot(sys, NOW)
+            _keyframe_backend(sys, snap, frame_idx, backend_info)
+        backend_info["backend_ms"] = (time.perf_counter() - t1) * 1000
     return tel, backend_info
 
 
@@ -861,16 +878,22 @@ def flush_pipeline(sys: SlamSystem):
     """Drain the lagged-telemetry queue at sequence end; returns the remaining
     [(telemetry, backend info), …] in frame order, then resolves a pending
     loop gate and spill."""
+    with tracing.span("flush"):
+        return _flush_pipeline(sys)
+
+
+def _flush_pipeline(sys: SlamSystem):
     out = []
     while sys._tel_queue:
         packed, snap, frame_idx = sys._tel_queue.pop(0)
         sys.host_reads["telemetry"] += 1
-        tel = unpack_telemetry(packed.numpy())
+        tel = unpack_telemetry(packed.numpy("telemetry", frame_idx))
         info = _info(frame_idx, 0.0)
         if bool(tel.is_keyframe):
-            t1 = time.time()
-            _keyframe_backend(sys, snap, frame_idx, info)
-            info["backend_ms"] = (time.time() - t1) * 1000
+            t1 = time.perf_counter()
+            with tracing.span("frame.backend", frame=frame_idx):
+                _keyframe_backend(sys, snap, frame_idx, info)
+            info["backend_ms"] = (time.perf_counter() - t1) * 1000
         out.append((tel, info))
     if sys._pending_loop is not None:
         packed, pslot, pframe = sys._pending_loop
@@ -886,7 +909,7 @@ def flush_pending_spill(sys: SlamSystem):
     """Sync a deferred spill copy into the archive."""
     if sys._pending_spill is not None and sys.archive is not None:
         sys.host_reads["spill"] += 1
-        sys.archive.sync_packed(sys._pending_spill.numpy())
+        sys.archive.sync_packed(sys._pending_spill.numpy("spill"))
         sys._pending_spill = None
 
 
@@ -894,79 +917,70 @@ def _keyframe_backend(sys: SlamSystem, snap: KfSnap, frame_idx: int, backend_inf
                       draws: Optional[BackendDraws] = None):
     """All per-keyframe back-end work, in the reference's order. ``snap`` is
     the snapshot taken at the keyframe; corrections apply to the live
-    ``sys.state``. ``backend_info["phases"]`` gets the host ms of each
-    phase."""
+    ``sys.state``. Each phase is a ``backend.*`` span (``utils/tracing.py``)."""
     draws = draws or BackendDraws()
-    phases = {}
-    backend_info["phases"] = phases
-    t_prev = [time.time()]
-
-    def mark(name):
-        t = time.time()
-        phases[name] = (t - t_prev[0]) * 1000
-        t_prev[0] = t
-
     # the previous keyframe's deferred spill, then the frustum reload
-    if sys.bcfg.enable_map_spill and sys.archive is not None:
-        flush_pending_spill(sys)
-        if sys.archive.dormant.any():
-            sys.host_reads["reload"] += 1
-        sys.state = sys.state._replace(lmap=sys.archive.reload(
-            sys.state.lmap, sys.state.R_cw, sys.state.t_cw, sys.rig.left, sys.n_frames,
-            reload_max=sys.bcfg.spill_reload_max, radius=sys.bcfg.spill_radius,
-            insert=_reload_insert))
-        backend_info["spill"] = {"archived": len(sys.archive), "reloads": sys.archive.n_reloads}
-    mark("spill_resolve")
+    with tracing.span("backend.spill_resolve"):
+        if sys.bcfg.enable_map_spill and sys.archive is not None:
+            flush_pending_spill(sys)
+            if sys.archive.dormant.any():
+                sys.host_reads["reload"] += 1
+            sys.state = sys.state._replace(lmap=sys.archive.reload(
+                sys.state.lmap, sys.state.R_cw, sys.state.t_cw, sys.rig.left, sys.n_frames,
+                reload_max=sys.bcfg.spill_reload_max, radius=sys.bcfg.spill_radius,
+                insert=_reload_insert))
+            backend_info["spill"] = {"archived": len(sys.archive),
+                                     "reloads": sys.archive.n_reloads}
     # the previous keyframe's deferred loop gate: a fired pose graph corrects
     # the epoch before this keyframe's snapshot enters the database
-    if sys._pending_loop is not None:
-        packed, pslot, pframe = sys._pending_loop
-        sys._pending_loop = None
-        fired = _try_loop_closure(sys, pslot, pframe, packed=packed)
-        backend_info["loop"] = fired
-        if fired:
-            snap = _epoch_correct(sys, snap, frame_idx)
-    mark("resolve")
-    prev_slot = sys.last_kf_slot
-    slot = sys.n_keyframes % sys.bcfg.max_keyframes   # host mirror of kf_db.next_slot
-    sys.n_keyframes += 1
-    kf_desc = _binary_codes(sys.cfg, snap.desc)
-    _kf_add(sys, snap, kf_desc, frame_idx, slot, prev_slot)
-    sys.last_kf_slot = slot
-    # the snapshot's ring entry is called again telemetry_lag + 1 frames on;
-    # the caller (the app's overlays) keeps this one longer
-    sys.last_kf_snap = fresh(snap)
-    mark("kf_add")
+    with tracing.span("backend.resolve"):
+        if sys._pending_loop is not None:
+            packed, pslot, pframe = sys._pending_loop
+            sys._pending_loop = None
+            fired = _try_loop_closure(sys, pslot, pframe, packed=packed)
+            backend_info["loop"] = fired
+            if fired:
+                snap = _epoch_correct(sys, snap, frame_idx)
+    with tracing.span("backend.kf_add"):
+        prev_slot = sys.last_kf_slot
+        slot = sys.n_keyframes % sys.bcfg.max_keyframes   # host mirror of kf_db.next_slot
+        sys.n_keyframes += 1
+        kf_desc = _binary_codes(sys.cfg, snap.desc)
+        _kf_add(sys, snap, kf_desc, frame_idx, slot, prev_slot)
+        sys.last_kf_slot = slot
+        # the snapshot's ring entry is called again telemetry_lag + 1 frames
+        # on; the caller (the app's overlays) keeps this one longer
+        sys.last_kf_snap = fresh(snap)
     pending_loop = None
-    if sys.bcfg.enable_loop_closure:
-        n_kfs = sys.n_keyframes
-        if sys.vocab is None:
-            sys.vocab = _train_vocab(sys.bcfg, kf_desc, snap.valid,
-                                     draws.vocab or GeneratorDraw(7, sys.device))
-            sys.n_vocab_trains += 1
-        elif (n_kfs >= sys.bcfg.vocab_retrain_kfs
-              and n_kfs >= sys.last_vocab_kfs * sys.bcfg.vocab_retrain_growth):
-            _retrain_vocab(sys, draws.vocab)
-        pending_loop = _loop_issue(sys, slot, frame_idx, draws.loop_noise)
-    mark("loop_issue")
-    if sys.bcfg.ba_every_kf and prev_slot >= 0:
-        backend_info["ba"] = _run_windowed_ba(sys)
-    mark("ba_dispatch")
-    if pending_loop is not None:
-        if sys.bcfg.loop_resolve_lag > 0:
-            sys._pending_loop = (pending_loop, slot, frame_idx)
-        else:
-            backend_info["loop"] = _try_loop_closure(sys, slot, frame_idx, packed=pending_loop)
-    mark("resolve_sync")
+    with tracing.span("backend.loop_issue"):
+        if sys.bcfg.enable_loop_closure:
+            n_kfs = sys.n_keyframes
+            if sys.vocab is None:
+                sys.vocab = _train_vocab(sys.bcfg, kf_desc, snap.valid,
+                                         draws.vocab or GeneratorDraw(7, sys.device))
+                sys.n_vocab_trains += 1
+            elif (n_kfs >= sys.bcfg.vocab_retrain_kfs
+                  and n_kfs >= sys.last_vocab_kfs * sys.bcfg.vocab_retrain_growth):
+                _retrain_vocab(sys, draws.vocab)
+            pending_loop = _loop_issue(sys, slot, frame_idx, draws.loop_noise)
+    with tracing.span("backend.ba_dispatch"):
+        if sys.bcfg.ba_every_kf and prev_slot >= 0:
+            backend_info["ba"] = _run_windowed_ba(sys)
+    with tracing.span("backend.resolve_sync"):
+        if pending_loop is not None:
+            if sys.bcfg.loop_resolve_lag > 0:
+                sys._pending_loop = (pending_loop, slot, frame_idx)
+            else:
+                backend_info["loop"] = _try_loop_closure(sys, slot, frame_idx,
+                                                         packed=pending_loop)
     if sys.bcfg.enable_map_spill and sys.archive is not None:
         # the packed table (``_pack_live``'s captured program; the caller's)
         # goes to the host behind an event, read a keyframe later at most
-        spill = HostCopy(_pack_live(sys.state.lmap))
-        mark("spill_pack")
-        sys._pending_spill = spill
+        with tracing.span("backend.spill_pack"):
+            sys._pending_spill = HostCopy(_pack_live(sys.state.lmap))
         if sys.bcfg.spill_resolve_lag == 0:
-            flush_pending_spill(sys)
-            mark("spill_sync")
+            with tracing.span("backend.spill_sync"):
+                flush_pending_spill(sys)
 
 
 def run_system(sys: SlamSystem, left, right, imu=None):

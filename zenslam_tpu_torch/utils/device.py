@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zenslam_tpu_torch.utils import tracing
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
@@ -58,7 +60,9 @@ class HostCopy:
     """A device->host copy started now and read later. On CUDA the tensor is
     copied into pinned memory behind an event, and ``numpy()`` waits on that
     event only; on the CPU it holds a copy (the tensor may be a captured
-    program's static output, which the next call overwrites)."""
+    program's static output, which the next call overwrites). The wait is a
+    ``hostio.wait`` span (``utils/tracing.py``) whose detail is the read's
+    kind, serving ``frame`` (default: its parent's)."""
 
     def __init__(self, t: torch.Tensor):
         if t.device.type == "cuda":
@@ -69,7 +73,8 @@ class HostCopy:
         else:
             self._buf, self._event = t.clone(), None
 
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+    def numpy(self, kind: str = "read", frame=None) -> np.ndarray:
+        with tracing.span("hostio.wait", kind, frame):
+            if self._event is not None:
+                self._event.synchronize()
         return self._buf.numpy()

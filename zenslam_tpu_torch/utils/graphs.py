@@ -49,11 +49,16 @@ that graph on every later call:
   someone else's (jit inside another trace): it is recorded there as plain
   kernels.
 - Counters that count Python calls, which a replay does not make: the hand
-  kernels' launches (``lk_ragged.launches``, ``orb_steered_brief.launches``)
-  and the sharded solver's all-reduces and their floats
-  (``parallel/dist_ba.py:collectives``). The capture records each
-  counter's increase and every call adds it. The warm-up and the capture
-  themselves count nothing.
+  kernels' launches (``lk_ragged.launches``, ``orb_steered_brief.launches``),
+  the sharded solver's all-reduces and their floats
+  (``parallel/dist_ba.py:collectives``) and the device stamps
+  (``utils/tracing.py:counters``). The capture records each counter's
+  increase and every call adds it. The warm-up and the capture themselves
+  count nothing.
+- Tracing (``utils/tracing.py``): while it is on, a program stamps the
+  device at its first and last node under its name (its warm-up stamps
+  nothing), logs each call, and its capture is a ``graphs.capture`` host
+  span. The switch is part of every key.
 - Random draws: a static argument with a ``seeded_generators()`` method
   (``backend/bow.py:GeneratorDraw``) names ``torch.Generator``s and their
   seeds. Each is seeded afresh before every run of the function (the
@@ -86,12 +91,12 @@ import contextlib
 import functools
 import inspect
 import numbers
-import time
 import weakref
 
 import numpy as np
 import torch
 
+from zenslam_tpu_torch.utils import tracing
 from zenslam_tpu_torch.utils.device import upload
 
 _EAGER_DEPTH = 0
@@ -150,7 +155,7 @@ def _counters() -> tuple:
     from zenslam_tpu_torch.parallel.dist_ba import collectives
 
     return ((lk_ragged, "launches"), (orb_steered_brief, "launches"), (collectives, "calls"),
-            (collectives, "floats"))
+            (collectives, "floats"), (tracing.counters, "stamps"))
 
 
 def _read_all() -> tuple:
@@ -249,12 +254,13 @@ def _settings() -> tuple:
     """The global settings that choose kernels: part of every key, as a
     changed flag makes jit trace anew; with them the multiply-add form of
     the blurs and the ORB moments (``ops/image.py:fma``, the fused op or
-    its float64 emulation), which a caller may swap."""
+    its float64 emulation), which a caller may swap; and whether tracing
+    stamps the device."""
     from zenslam_tpu_torch.ops import image, orb
 
     return (torch.are_deterministic_algorithms_enabled(),
             torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
-            image.fma, orb.fma)
+            image.fma, orb.fma, tracing.enabled())
 
 
 class _Captured:
@@ -276,7 +282,6 @@ class _Captured:
         self.out_spec = None
         self.outs = None
         self.launches = (0,) * len(_counters())
-        self.capture_ms = 0.0
         self.calls = 0
 
     def _args(self) -> dict:
@@ -284,6 +289,14 @@ class _Captured:
         args = {n: unflatten(s, it) for n, s in self.specs.items()}
         args.update(self.static)
         return args
+
+    def _run(self) -> tuple:
+        """The function on the buffers between the program's device stamps,
+        its donated outputs copied back (``_donate``)."""
+        tracing.begin(self.name, self.dev)
+        out = self._donate(self.fn(**self._args()))
+        tracing.end(self.name, self.dev)
+        return out
 
     def _donate(self, out) -> tuple:
         """Copy the donated arguments' new values into their buffers; return
@@ -316,21 +329,19 @@ class _Captured:
 
     def capture(self) -> None:
         """Warm up, then capture (CUDA); on the CPU the first run."""
-        fn = self.fn
         saved = _read_all()
-        t0 = time.perf_counter()
         try:
             _reseed(self.generators)
             if not self.cuda:
                 before = saved
                 with _running():
-                    self.out_spec, self.outs = self._donate(fn(**self._args()))
+                    self.out_spec, self.outs = self._run()
             else:
                 side = _side_stream(self.dev)
                 side.wait_stream(torch.cuda.current_stream(self.dev))
                 states = [(g, g.get_state()) for g, seed in self.generators if seed is None]
-                with torch.cuda.stream(side), _running():
-                    fn(**self._args())                     # the warm-up: results dropped
+                with torch.cuda.stream(side), _running(), tracing.muted():
+                    self.fn(**self._args())                # the warm-up: results dropped
                 torch.cuda.current_stream(self.dev).wait_stream(side)
                 for g, st in states:                       # its draws undone
                     g.set_state(st)
@@ -340,12 +351,11 @@ class _Captured:
                     graph.register_generator_state(g)
                 _reseed(self.generators)
                 with torch.cuda.graph(graph, stream=side), _running():
-                    self.out_spec, self.outs = self._donate(fn(**self._args()))
+                    self.out_spec, self.outs = self._run()
                 self.graph = graph
             self.launches = tuple(a - b for a, b in zip(_read_all(), before))
         finally:
             _set_counters(saved)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def __call__(self, leaves: list):
         self.calls += 1
@@ -356,17 +366,19 @@ class _Captured:
                 dst.append(b)
                 src.append(t)
         _copy(dst, src)
+        tracing.launched(self.name, self.dev)
         if self.graph is not None:
             _reseed(self.generators)
             self.graph.replay()
         elif self.outs is None:
-            self.capture()
+            with tracing.span("graphs.capture", self.name):
+                self.capture()
         else:
             _reseed(self.generators)
             saved = _read_all()
             try:
                 with _running():
-                    _, outs = self._donate(self.fn(**self._args()))
+                    _, outs = self._run()
             finally:
                 _set_counters(saved)
             keep = [(a, b) for a, b in zip(self.outs, outs) if not _same_memory(a, b)]
@@ -461,7 +473,8 @@ class Program:
         if entry is None:
             entry = _Captured(self, static, specs, ranges, leaves)
             if entry.cuda:
-                entry.capture()
+                with tracing.span("graphs.capture", entry.name):
+                    entry.capture()
             self.captured[key] = entry
         out = entry(leaves)
         if not self.copy_outputs:
@@ -487,9 +500,3 @@ def calls(program: Program, **static) -> int:
     static arguments include ``static``."""
     return sum(c.calls for c in program.captured.values()
                if all(c.static.get(k) == v for k, v in static.items()))
-
-
-def capture_ms() -> list:
-    """The milliseconds each live captured program took to warm up and
-    capture."""
-    return [c.capture_ms for p in _PROGRAMS for c in p.captured.values()]
